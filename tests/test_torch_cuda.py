@@ -12,10 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from vcfc_tpu.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch import engine
+from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch.ops import _build, cuda_rle
-from vcfc_tpu_torch.ops.rle import rle_decode_plain, rle_encode_plain
+from vcfc_tpu_torch.ops.rle import (
+    rle_decode_plain,
+    rle_encode_plain,
+    text_rle_decode_plain,
+    text_rle_encode_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -70,10 +75,37 @@ def test_decode_of_malformed_planes_matches_plain(cuda_device, W, S):
     _assert_equal(cuda_rle.cuda_rle_decode(x, S), rle_decode_plain(x, S))
 
 
-def test_engine_on_cuda_matches_cpu(cuda_device):
+@pytest.mark.parametrize(
+    "L,W,S",
+    [(256, 2560, 2504), (8, 50048, 50000), (64, 128, 1), (64, 128, 127), (64, 1000, 990)],
+)
+def test_text_kernels_match_plain(cuda_device, L, W, S):
+    """K3 on words of every kind (genotypes, escapes, bad separators, zero
+    rows, arbitrary 32-bit words), then K4 on its flags and on a malformed
+    plane."""
+    rng = np.random.default_rng(W + S + 1)
+    fields = np.frombuffer(b"0|0\t0|1\t1|0\t1|1\t2|0\t./.\t0|0x", np.uint32)
+    words = fields[rng.choice(len(fields), size=(L, W), p=[0.7, 0.1, 0.08, 0.06, 0.03, 0.02, 0.01])]
+    words[: L // 8] = rng.integers(0, 1 << 32, (L // 8, W), dtype=np.uint32)
+    words[L // 8 : L // 4] = 0
+    words[:, S:] = 0
+    x = torch.from_numpy(words.view(np.int32)).to(cuda_device)
+    flags, nseg, seps_ok = cuda_rle.cuda_text_encode(x, S)
+    _assert_equal((flags, nseg, seps_ok), text_rle_encode_plain(x, S))
+    _assert_equal(cuda_rle.cuda_text_decode(flags, S), text_rle_decode_plain(flags, S))
+    malformed = torch.from_numpy(rng.integers(0, 256, (L, W), dtype=np.uint8)).to(cuda_device)
+    malformed[torch.rand(L, W, device=cuda_device) < 0.97] = 0
+    _assert_equal(cuda_rle.cuda_text_decode(malformed, S), text_rle_decode_plain(malformed, S))
+
+
+@pytest.mark.parametrize("parse", [None, "device"], ids=["parse-route", "text-route"])
+def test_engine_on_cuda_matches_cpu(cuda_device, monkeypatch, parse):
+    if parse:
+        monkeypatch.setenv("VCFC_PARSE", parse)
     vcf = generate_realistic_vcf(300, 600, seed=9)
+    kernels = ("text_encode", "text_decode") if parse else ("rle_encode", "rle_decode")
     before = dict(cuda_rle.LAUNCHES)
     vcfc = engine.compress(vcf, force_device=True, device=cuda_device)
     assert vcfc == engine.compress(vcf, force_device=True, device="cpu")
     assert engine.decompress(vcfc, force_device=True, device=cuda_device) == vcf
-    assert all(cuda_rle.LAUNCHES[k] > before[k] for k in before)
+    assert all(cuda_rle.LAUNCHES[k] > before[k] for k in kernels)

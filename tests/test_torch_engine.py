@@ -111,12 +111,15 @@ def test_truncated_vcfc_raises_as_the_jax_engine_does(small_vcfc, monkeypatch, n
         bad = small_vcfc[:cut]
         with pytest.raises(Exception) as want:
             jax_engine.decompress(bad, force_device=True)
-        with pytest.raises(want.type):
+        with pytest.raises(ValueError) as got:
             engine.decompress(bad, force_device=True, device=CPU)
+        # the port raises its own copy of the JAX package's exception class
+        assert got.type.__name__ == want.type.__name__
+        assert [c.__name__ for c in got.type.__mro__] == [c.__name__ for c in want.type.__mro__]
 
 
 def test_truncated_stream_raises(small_vcfc):
-    from vcfc_tpu.format.lines import VcfValidationError
+    from vcfc_tpu_torch.format.lines import VcfValidationError
 
     with pytest.raises(VcfValidationError, match="truncated"):
         engine.decompress_stream(io.BytesIO(small_vcfc[:-3]), io.BytesIO(), device=CPU)
@@ -149,11 +152,23 @@ def test_cli_usage_errors(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("var", ["VCFC_PARSE", "VCFC_UNPACK"])
 def test_later_slice_routes_raise(small_vcf, small_vcfc, monkeypatch, var):
+    """VCFC_UNPACK=device is still refused; VCFC_PARSE=device now runs the
+    text route (K3/K4's plain versions here) instead of the parse route."""
     monkeypatch.setenv(var, "device")
-    with pytest.raises(NotImplementedError, match=f"{var}=device"):
-        engine.compress(small_vcf, device=CPU)
-    with pytest.raises(NotImplementedError, match=f"{var}=device"):
-        engine.decompress(small_vcfc, device=CPU)
+    if var == "VCFC_UNPACK":
+        with pytest.raises(NotImplementedError, match=f"{var}=device"):
+            engine.compress(small_vcf, device=CPU)
+        with pytest.raises(NotImplementedError, match=f"{var}=device"):
+            engine.decompress(small_vcfc, device=CPU)
+        return
+
+    def parse_route(*_args):
+        raise AssertionError("the parse route was taken")
+
+    monkeypatch.setattr(engine, "encode_on_device", parse_route)
+    monkeypatch.setattr(engine, "decode_on_device", parse_route)
+    assert engine.compress(small_vcf, force_device=True, device=CPU) == small_vcfc
+    assert engine.decompress(small_vcfc, force_device=True, device=CPU) == small_vcf
 
 
 def test_default_device_needs_cuda(small_vcf, small_vcfc, monkeypatch, tmp_path):
@@ -173,12 +188,23 @@ def test_default_device_needs_cuda(small_vcf, small_vcfc, monkeypatch, tmp_path)
 
 
 def test_port_imports_neither_jax_nor_triton():
+    """Every module of the port, and chip_smoke, loads no jax, no triton
+    and nothing of the JAX package vcfc_tpu."""
     code = (
-        "import json, sys\n"
-        "import vcfc_tpu_torch, vcfc_tpu_torch.engine, vcfc_tpu_torch.cli\n"
-        "print(json.dumps(sorted(m for m in ('jax', 'triton') if m in sys.modules)))\n"
+        "import importlib, json, pkgutil, sys\n"
+        "import vcfc_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(vcfc_tpu_torch.__path__, 'vcfc_tpu_torch.')\n"
+        "         if m.name != 'vcfc_tpu_torch.__main__']  # __main__ runs the CLI\n"
+        "for name in names + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'triton', 'vcfc_tpu') "
+        "or m.startswith(('jax.', 'triton.', 'vcfc_tpu.'))]\n"
+        "print(json.dumps({'imported': names, 'bad': sorted(bad)}))\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, check=True
     )
-    assert json.loads(r.stdout) == []
+    out = json.loads(r.stdout)
+    assert out["bad"] == []
+    assert {"vcfc_tpu_torch.engine", "vcfc_tpu_torch.host.native",
+            "vcfc_tpu_torch.eval.random_vcf", "vcfc_tpu_torch.ops.cuda_rle"} <= set(out["imported"])

@@ -3,16 +3,17 @@
 The port of ``vcfc_tpu`` from JAX on a TPU to PyTorch on an NVIDIA H100.
 The system has no weights: its state is the data.  The public functions
 take and return the JAX package's numpy layouts unchanged (uint8
-``(L, S_pad)`` code and flag planes, int32 ``(L,)`` per-row counts, bytes
-for whole files), so the same numpy array goes to both packages, here as
-``torch.from_numpy(arr.copy())`` (the copy because arrays over a bytes
-buffer are read-only).
+``(L, S_pad)`` code and flag planes, int32 ``(L, S_pad)`` text-word planes,
+int32 ``(L,)`` per-row counts, bytes for whole files), so the same numpy
+array goes to both packages, here as ``torch.from_numpy(arr.copy())`` (the
+copy because arrays over a bytes buffer are read-only).
 
 Ported so far: ``engine.compress`` / ``engine.decompress`` and their
-streaming forms, on the hand-written CUDA RLE kernels of
-``csrc/rle_kernels.cu``.  The host layers (``vcfc_tpu.host``,
-``vcfc_tpu.format``) are JAX-free and shared; this package never imports
-``jax``.
+streaming forms, on the hand-written CUDA kernels of
+``csrc/rle_kernels.cu``: the parse route (K1/K2) and the
+``VCFC_PARSE=device`` text route (K3/K4).  The host layers (``host``,
+``format``, ``eval.random_vcf``) are the port's own copies of
+``vcfc_tpu``'s; this package imports neither ``jax`` nor ``vcfc_tpu``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

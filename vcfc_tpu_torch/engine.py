@@ -2,12 +2,16 @@
 
 ``compress`` is host parse -> RLE encode on the device (K1) -> native
 assembly; ``decompress`` is native .vcfc parse -> RLE decode on the device
-(K2) -> native render.  The host layers are ``vcfc_tpu.host`` and
-``vcfc_tpu.format``, shared with the JAX package; only the device layer is
-ported.  Lines go to the device in zero-padded batches of the JAX engine's
-layout (multiples of 256 rows by ``S_pad = round_up(S, 128)`` columns), so
-the planes handed to the native assembly are the same.  Output is
-byte-for-byte the reference encoder's, like ``vcfc_tpu.engine``'s.
+(K2) -> native render.  Under ``VCFC_PARSE=device`` (with the native
+runtime) the text route runs instead: compress gathers each line's
+genotype text and classifies and encodes it on the device (K3), and
+decompress decodes and renders the text on the device (K4), which the host
+then memcpys.  The host layers are the port's own ``host`` and ``format``
+packages, copies of ``vcfc_tpu``'s.  Lines go to the device in
+zero-padded batches of the JAX engine's layout (multiples of 256 rows by
+``S_pad = round_up(S, 128)`` columns), so the planes handed to the native
+assembly are the same.  Output is byte-for-byte the reference encoder's,
+like ``vcfc_tpu.engine``'s.
 
 Every public function takes ``device``: None means ``cuda``, and raises
 when PyTorch sees no CUDA device; ``"cpu"`` runs the plain PyTorch kernels.
@@ -20,12 +24,13 @@ import os
 import numpy as np
 import torch
 
-from vcfc_tpu.format.vcf import compress_bytes, decompress_bytes, parse_metadata_headers
-from vcfc_tpu.host import native
-from vcfc_tpu.host.assemble import assemble_vcf, assemble_vcfc, parse_vcfc_bytes
-from vcfc_tpu.host.parse import parse_vcf_bytes
-
-from .ops.rle import render_text, rle_decode, rle_encode
+from .format.headers import decode_line_headers
+from .format.lines import VcfValidationError
+from .format.vcf import compress_bytes, decompress_bytes, parse_metadata_headers
+from .host import fast, native
+from .host.assemble import assemble_vcf, assemble_vcfc, parse_vcfc_bytes
+from .host.parse import ParsedVcf, parse_vcf_bytes
+from .ops.rle import render_text, rle_decode, rle_encode, text_rle_decode, text_rle_encode
 
 _LINE_BATCH = 2048  # a multiple of the 256-row batch granularity
 # Below this many genotype cells the device round trip costs more than the
@@ -65,13 +70,16 @@ def _device(device) -> torch.device:
 
 
 def _refuse_unported_routes() -> None:
-    for var in ("VCFC_PARSE", "VCFC_UNPACK"):
-        if os.environ.get(var) == "device":
-            raise NotImplementedError(
-                f"{var}=device is not ported to vcfc_tpu_torch yet: its "
-                "kernels come with the next slice of the port (the text and "
-                "packed-unpack routes); unset it to use the RLE kernels"
-            )
+    if os.environ.get("VCFC_UNPACK") == "device":
+        raise NotImplementedError(
+            "VCFC_UNPACK=device is not ported to vcfc_tpu_torch yet: its "
+            "kernel comes with a later slice of the port (the packed-unpack "
+            "route); unset it to use the RLE kernels"
+        )
+
+
+def _text_route() -> bool:
+    return native.available() and os.environ.get("VCFC_PARSE") == "device"
 
 
 def encode_on_device(codes: np.ndarray, S: int, line_batch: int, device) -> tuple:
@@ -111,6 +119,96 @@ def decode_on_device(flags: np.ndarray, S: int, line_batch: int, device) -> tupl
     return codes, decoded
 
 
+def encode_text_on_device(text: np.ndarray, S: int, device) -> tuple:
+    """Classify and RLE-encode one batch of gathered genotype text (H2D
+    copy, K3, D2H copy): ``text`` is (B, 4 * S_pad) uint8, one "a|b\\t"
+    word per sample.  Returns (flagpos (B, S_pad) uint8, nseg (B,) int32,
+    seps_ok (B,) int32)."""
+    f, k, r = text_rle_encode(torch.from_numpy(text).view(torch.int32).to(device), S)
+    return f.cpu().numpy(), k.cpu().numpy(), r.cpu().numpy()
+
+
+def compress_device_text(vcf: bytes, line_batch: int, force_device: bool, device) -> bytes | None:
+    """The VCFC_PARSE=device compress route: the host indexes the lines and
+    gathers each batch's genotype text (memcpy-class work), the device
+    classifies and encodes it (K3), and native assembly splices escapes
+    straight from the text.  Replaces the reference's per-sample scan
+    (compress.cpp:124-186).  Returns None to fall back (tiny input)."""
+    header = parse_metadata_headers(vcf)
+    S = header.schema.sample_count
+    raw_np = np.frombuffer(vcf, np.uint8)
+    line_start, line_end, sample_start = native.index_lines(raw_np, header.data_offset)
+    keep = line_end > line_start  # drop empty lines (compress.cpp:219-221)
+    line_start, line_end = line_start[keep], line_end[keep]
+    sample_start = sample_start[keep]
+    body = raw_np[header.data_offset :]
+    L = len(line_start)
+    if L == 0 or S == 0 or (L * S < _DEVICE_MIN_CELLS and not force_device):
+        return None
+    if (sample_start < 0).any():
+        bad = int(np.flatnonzero(sample_start < 0)[0])
+        raise VcfValidationError(f"data line {bad} has no FORMAT column (fewer than 9 tabs)")
+    irregular = (line_end - sample_start) != (4 * S - 1)
+    S_pad = max(_round_up(S, 128), 128)
+    line_batch = _adaptive_line_batch(line_batch, S_pad)
+    flagpos = np.zeros((L, S_pad), np.uint8)
+    nseg = np.zeros(L, np.int32)
+    seps = np.ones(L, np.int32)
+    for lo in range(0, L, line_batch):
+        hi = min(lo + line_batch, L)
+        # padded per-batch views; pad rows are marked irregular and stay zero
+        ss = np.zeros(line_batch, np.int64)
+        ss[: hi - lo] = sample_start[lo:hi]
+        ir = np.ones(line_batch, np.uint8)
+        ir[: hi - lo] = irregular[lo:hi]
+        text = native.gather_text(body, ss, ir, S, S_pad)
+        f, k, r = encode_text_on_device(text, S, device)
+        flagpos[lo:hi] = f[: hi - lo]
+        nseg[lo:hi] = k[: hi - lo]
+        seps[lo:hi] = r[: hi - lo]
+    # rows whose separator bytes are not tabs were mis-sliced: oracle path
+    irregular |= seps == 0
+    # the native assembly never reads codes (it splices escape ASCII
+    # straight from the text); a (0, S) array just carries the width
+    parsed = ParsedVcf(
+        header, body, line_start, line_end, sample_start, np.zeros((0, S), np.uint8), irregular
+    )
+    return fast.assemble_vcfc_native(parsed, flagpos, nseg)
+
+
+def decode_text_on_device(flags: np.ndarray, S: int, line_batch: int, device) -> tuple:
+    """RLE-decode (L, W) positional flags and render the text batch by
+    batch (H2D copy, K4, D2H copy).  Returns (text (L, 4 * S_pad) uint8,
+    the little-endian bytes of the words, decoded (L,) int32)."""
+    L, W = flags.shape
+    S_pad = max(_round_up(max(S, W), 128), 128)
+    line_batch = _adaptive_line_batch(line_batch, S_pad)
+    text = np.zeros((L, 4 * S_pad), np.uint8)
+    decoded = np.zeros(L, np.int32)
+    for lo in range(0, L, line_batch):
+        hi = min(lo + line_batch, L)
+        batch = np.zeros((line_batch, S_pad), np.uint8)
+        batch[: hi - lo, :W] = flags[lo:hi]
+        t, _c, d = text_rle_decode(torch.from_numpy(batch).to(device), S)
+        text[lo:hi] = t[: hi - lo].cpu().numpy().view(np.uint8)
+        decoded[lo:hi] = d[: hi - lo].cpu().numpy()
+    return text, decoded
+
+
+def decompress_device_text(parsed, line_batch: int, force_device: bool, device) -> bytes | None:
+    """The VCFC_PARSE=device decompress route: the device decodes and
+    renders "a|b\\t" words (K4); native assembly memcpys the text plane and
+    splices escapes over the "?|?" placeholders, with no host render pass.
+    The D2H copy moves 4 text bytes a sample instead of 1 code byte.
+    Returns None to fall back (tiny input)."""
+    L = parsed.n_lines
+    S = parsed.header.schema.sample_count
+    if L == 0 or S == 0 or (L * S < _DEVICE_MIN_CELLS and not force_device):
+        return None
+    text, decoded = decode_text_on_device(parsed.flags, S, line_batch, device)
+    return fast.assemble_vcf_from_text(parsed, text, decoded)
+
+
 def compress(
     vcf: bytes, line_batch: int = _LINE_BATCH, force_device: bool = False, device=None
 ) -> bytes:
@@ -119,6 +217,10 @@ def compress(
     _refuse_unported_routes()
     force_device = _force_device(force_device)
     line_batch = _round_up(max(line_batch, 1), 256)
+    if _text_route():
+        out = compress_device_text(vcf, line_batch, force_device, device)
+        if out is not None:
+            return out
     parsed = parse_vcf_bytes(vcf)
     L, S = parsed.n_lines, parsed.n_samples
     if L == 0 or S == 0 or (L * S < _DEVICE_MIN_CELLS and not force_device):
@@ -130,9 +232,7 @@ def compress(
         flagpos, nseg = encode_on_device(parsed.codes, S, line_batch, device)
 
     if native.available():
-        from vcfc_tpu.host.fast import assemble_vcfc_native
-
-        return assemble_vcfc_native(parsed, flagpos, nseg)
+        return fast.assemble_vcfc_native(parsed, flagpos, nseg)
     return assemble_vcfc(parsed, flagpos, nseg)
 
 
@@ -146,9 +246,11 @@ def decompress(
     line_batch = _round_up(max(line_batch, 1), 256)
     use_native = native.available()
     if use_native:
-        from vcfc_tpu.host.fast import parse_vcfc_native
-
-        parsed = parse_vcfc_native(vcfc)
+        parsed = fast.parse_vcfc_native(vcfc)
+        if _text_route():
+            out = decompress_device_text(parsed, line_batch, force_device, device)
+            if out is not None:
+                return out
     else:
         parsed = parse_vcfc_bytes(vcfc)
     L = parsed.n_lines
@@ -164,9 +266,7 @@ def decompress(
         codes, decoded = decode_on_device(parsed.flags, S, line_batch, device)
 
     if use_native:
-        from vcfc_tpu.host.fast import assemble_vcf_native
-
-        return assemble_vcf_native(parsed, codes, decoded)
+        return fast.assemble_vcf_native(parsed, codes, decoded)
     return assemble_vcf(parsed, render_text(codes), decoded)
 
 
@@ -260,9 +360,6 @@ def decompress_stream(src, dst, chunk_bytes: int | None = None, device=None) -> 
     stream, split at compressed-line boundaries by hopping the 4-byte
     length headers.  Byte-identical to ``decompress`` of the whole file;
     returns the bytes written."""
-    from vcfc_tpu.format.headers import decode_line_headers
-    from vcfc_tpu.format.lines import VcfValidationError
-
     device = _device(device)
     chunk = _stream_chunk(chunk_bytes)
     fin, fout, closers = _open_pair(src, dst)

@@ -4,11 +4,14 @@ The port of ``vcfc_tpu/ops/rle.py``: the same positional-flag
 representation (each segment's flag byte at its LAST sample position, 0
 elsewhere) and the same greedy 127/31/1 run caps.  ``rle_encode_plain``
 and ``rle_decode_plain`` are plain PyTorch versions of ``rle_encode`` and
-``rle_decode`` there; they are the spec that the CUDA kernels of
-``cuda_rle`` are held to.
+``rle_decode`` there, and ``text_rle_encode_plain`` /
+``text_rle_decode_plain`` of ``text_rle_encode`` / ``text_rle_decode``
+(the same codec on one little-endian int32 "a|b\\t" word per sample);
+they are the spec that the CUDA kernels of ``cuda_rle`` are held to.
 
-The public ``rle_encode`` / ``rle_decode`` dispatch on the tensor's
-device: a CPU tensor gets the plain version, a CUDA tensor the kernel.
+The public ``rle_encode`` / ``rle_decode`` / ``text_rle_encode`` /
+``text_rle_decode`` dispatch on the tensor's device: a CPU tensor gets the
+plain version, a CUDA tensor the kernel.
 
 Genotype codes: 0="0|0", 1="0|1", 2="1|0", 3="1|1", 4=escape.
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vcfc_tpu.format.constants import (
+from ..format.constants import (
     CODE_ESCAPE,
     SAMPLE_MASKED_01,
     SAMPLE_MASKED_10,
@@ -26,7 +29,7 @@ from vcfc_tpu.format.constants import (
     SAMPLE_MASKED_UNCOMPRESSED,
 )
 
-from .cuda_rle import cuda_rle_decode, cuda_rle_encode
+from .cuda_rle import cuda_rle_decode, cuda_rle_encode, cuda_text_decode, cuda_text_encode
 
 _BIG = 0x7FFFFFFF  # reverse-min sentinel: its low byte 0xFF decodes as an escape
 
@@ -97,6 +100,50 @@ def rle_decode_plain(flagpos: torch.Tensor, n_samples: int):
     return code, decoded
 
 
+def _classify_words(text: torch.Tensor):
+    """(L, S_pad) int32 little-endian "a|b<sep>" words -> (codes int32,
+    separator byte int32).  A word is 2a + b when a and b are '0' or '1'
+    and its middle byte is '|', and an escape (4) otherwise: the
+    reference's four-GT match (compress.cpp:126-170)."""
+    b0 = text & 0xFF
+    b1 = (text >> 8) & 0xFF
+    b2 = (text >> 16) & 0xFF
+    sep = (text >> 24) & 0xFF
+    valid = (((b0 - 48) & ~1) == 0) & (b1 == 124) & (((b2 - 48) & ~1) == 0)
+    return torch.where(valid, (b0 - 48) * 2 + (b2 - 48), CODE_ESCAPE), sep
+
+
+def _render_words(code: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """int32 codes -> int32 "a|b<sep>" words: escapes render the "?|?"
+    placeholder, the separator is '\\n' at sample n - 1 and '\\t' elsewhere."""
+    esc = code == CODE_ESCAPE
+    b0 = torch.where(esc, 63, 48 + (code >> 1))
+    b2 = torch.where(esc, 63, 48 + (code & 1))
+    sep = torch.where(_columns(code) == n_samples - 1, 10, 9).to(torch.int32)
+    return b0 | (124 << 8) | (b2 << 16) | (sep << 24)
+
+
+def text_rle_encode_plain(text: torch.Tensor, n_samples: int):
+    """Classify (L, S_pad) int32 text words, then RLE-encode the codes.
+
+    Returns (flagpos (L, S_pad) uint8, nseg (L,) int32, seps_ok (L,)
+    int32): seps_ok is 0 where a separator before sample n - 1 is not a
+    tab, which marks a mis-sliced line."""
+    codes, sep = _classify_words(text)
+    ok = torch.where(_columns(text) < n_samples - 1, (sep == 9).to(torch.int32), 1)
+    flagpos, nseg = rle_encode_plain(codes.to(torch.uint8), n_samples)
+    return flagpos, nseg, ok.amin(dim=1)
+
+
+def text_rle_decode_plain(flagpos: torch.Tensor, n_samples: int):
+    """RLE-decode (L, S_pad) uint8 flags, then render each code as a word.
+
+    Returns (text (L, S_pad) int32 words, codes (L, S_pad) uint8,
+    decoded (L,) int32)."""
+    code, decoded = rle_decode_plain(flagpos, n_samples)
+    return _render_words(code.to(torch.int32), n_samples), code, decoded
+
+
 def _dispatch(x: torch.Tensor, plain, kernel):
     if x.device.type == "cpu":
         return plain
@@ -115,6 +162,18 @@ def rle_decode(flagpos: torch.Tensor, n_samples: int):
     """(L, S_pad) uint8 flags -> (codes uint8, decoded int32): the plain
     version on a CPU tensor, the CUDA kernel K2 on a CUDA tensor."""
     return _dispatch(flagpos, rle_decode_plain, cuda_rle_decode)(flagpos, n_samples)
+
+
+def text_rle_encode(text: torch.Tensor, n_samples: int):
+    """(L, S_pad) int32 words -> (flagpos uint8, nseg int32, seps_ok
+    int32): the plain version on a CPU tensor, K3 on a CUDA tensor."""
+    return _dispatch(text, text_rle_encode_plain, cuda_text_encode)(text, n_samples)
+
+
+def text_rle_decode(flagpos: torch.Tensor, n_samples: int):
+    """(L, S_pad) uint8 flags -> (text int32 words, codes uint8, decoded
+    int32): the plain version on a CPU tensor, K4 on a CUDA tensor."""
+    return _dispatch(flagpos, text_rle_decode_plain, cuda_text_decode)(flagpos, n_samples)
 
 
 def render_text(codes) -> np.ndarray:
