@@ -7,55 +7,71 @@ Needs one CUDA device, nvcc (CUDA_HOME or PATH) and make with g++.  It
 builds the CUDA kernels and the native host library from this checkout,
 then runs, in order, failing (non-zero exit) at the first phase that fails:
 
-  1. the card's name and power limit; nvcc build of csrc/rle_kernels.cu
-     (K1-K4); make of native/libvcfc_host.so; the 1000 Genomes phase 3
-     sized cohort
+  1. the card's name and power limit; nvcc builds of csrc/rle_kernels.cu
+     (K1-K4) and csrc/probe_kernels.cu (the ablation probes C1-C4), both
+     started together; make of native/libvcfc_host.so; the 1000 Genomes
+     phase 3 sized cohort
   2. each kernel against its plain PyTorch version on the card, exact on
-     every output element, at the engine's batch shapes and on edge cases
-  3. both routes of the main path on the cohort: the parse route (K1/K2)
-     and the VCFC_PARSE=device text route (K3/K4); each route's compress
-     bytes equal to the native host executor's, its decompress restoring
-     the input, and a CLI compress/decompress round trip of each route in a
-     temporary directory
+     every output element, at the engine's batch shapes and on edge cases;
+     C1 and C4 at every cells a thread, and C4 against K1's outputs too
+  3. the routes of the main path on the cohort: the parse route (K1/K2),
+     the VCFC_PARSE=device text route (K3/K4) and the VCFC_UNPACK=device
+     decompress route (packed flags unpacked on the card, then K2); each
+     route's compress bytes equal to the native host executor's, its
+     decompress restoring the input, and a CLI compress/decompress round
+     trip of each route in a temporary directory
   4. each route's kernels' launch counts from its own phase 3 run above zero
   5. each kernel's time and its plain version's (CUDA events, median,
      inputs read from HBM) beside its bound, and the end-to-end seconds of
-     both routes
+     the routes
   6. where the time goes, per route: host-clock seconds per layer from
      phase 3's calls, and device busy time from torch.profiler events on
      the CUDA device only
-  7. one "kernels" JSON line (launches, mismatches, times, bounds), then a
+  7. the K1/K2 ablation (vcfc_tpu_torch.eval.kernel_ceiling) at 8192 x
+     2560, its probes' launch counts from that run above zero, and its
+     table
+  8. one "kernels" JSON line (launches, mismatches, times, bounds), then a
      last line {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from vcfc_tpu_torch import engine
+from vcfc_tpu_torch.eval import kernel_ceiling
+from vcfc_tpu_torch.eval.bench_codes import gt_codes
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
+from vcfc_tpu_torch.eval.timing import LAUNCHES_PER_TRIAL, TRIALS, median_ms, rotated
 from vcfc_tpu_torch.format.vcf import parse_metadata_headers
 from vcfc_tpu_torch.host import fast, native
 from vcfc_tpu_torch.host.parse import parse_vcf_bytes
 from vcfc_tpu_torch.ops._build import build
 from vcfc_tpu_torch.ops.cuda_rle import (
     LAUNCHES,
+    PROBE_CELLS,
+    cuda_probe_blocked_encode,
+    cuda_probe_roundtrip,
+    cuda_probe_scan_only,
+    cuda_probe_scan_replaced,
     cuda_rle_decode,
     cuda_rle_encode,
     cuda_text_decode,
     cuda_text_encode,
 )
+from vcfc_tpu_torch.ops.probe import roundtrip_plain, scan_only_plain, scan_replaced_plain
 from vcfc_tpu_torch.ops.rle import (
     rle_decode_plain,
     rle_encode_plain,
@@ -71,20 +87,28 @@ SEED = 5
 CLI_LINES = 8192  # the CLI round trips run on this prefix of the cohort
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 TIMED_SHAPE = (2048, 2560)  # one engine batch of the cohort
-TIMING_TRIALS = 15
-LAUNCHES_PER_TRIAL = 20
-SLEEP_CYCLES = 50_000_000  # ~25 ms: longer than enqueueing a trial's launches
-# Timed launches cycle through copies of their input that together hold at
-# least this many bytes, 4x the H100's 50 MB L2, so each launch reads its
-# input from HBM and not from what the launch before left in L2.
-ROTATE_BYTES = 200_000_000
 SOURCE = "vcfc_tpu_torch/csrc/rle_kernels.cu"
+PROBE_SOURCE = "vcfc_tpu_torch/csrc/probe_kernels.cu"
 KERNELS = {  # name -> (kernel, plain version, the TPU kernel it replaces)
     "rle_encode": (cuda_rle_encode, rle_encode_plain, "vcfc_tpu/ops/pallas_rle.py:181"),
     "rle_decode": (cuda_rle_decode, rle_decode_plain, "vcfc_tpu/ops/pallas_rle.py:234"),
     "text_encode": (cuda_text_encode, text_rle_encode_plain, "vcfc_tpu/ops/pallas_rle.py:265"),
     "text_decode": (cuda_text_decode, text_rle_decode_plain, "vcfc_tpu/ops/pallas_rle.py:292"),
 }
+# The ablation probes: name -> (kernel, plain version, the TPU kernel it
+# replaces, its row in kernel_ceiling's times, its plain version's row);
+# C1 and C4 take cells= and report their best cells.
+PROBES = {
+    "probe_scan_only": (cuda_probe_scan_only, scan_only_plain,
+                        "scripts/kernel_ceiling.py:69", "scan-only", "scan-only"),
+    "probe_scan_replaced": (cuda_probe_scan_replaced, scan_replaced_plain,
+                            "scripts/kernel_ceiling.py:91", "scan-replaced", "scan-replaced"),
+    "probe_roundtrip": (cuda_probe_roundtrip, roundtrip_plain,
+                        "scripts/kernel_ceiling.py:130", "round trip", "round trip"),
+    "probe_blocked_encode": (cuda_probe_blocked_encode, rle_encode_plain,
+                             "scripts/swar_probe.py:119", "blocked encode", "K1 encode"),
+}
+CELLS_PROBES = ("probe_scan_only", "probe_blocked_encode")
 # Bounds: bytes each kernel must move per cell (each input read once, each
 # output written once) and per row (the int32 per-row outputs) over the
 # H100's published 3.35 TB/s; and the integer operations per cell of its
@@ -95,23 +119,35 @@ KERNELS = {  # name -> (kernel, plain version, the TPU kernel it replaces)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_SM_PER_CLOCK = 64
 CLOCK_QUERY = ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]
+# The probes' operations are counted from K1's and K2's: C1 keeps K1's
+# plain steps up to the scan (the int32 cast, the shifted copy, the five of
+# new_run, the where, the cummax) and adds the & 0x7F and the cast, 11; C2
+# swaps the where + cummax of the scan for an & and a where, 35 like K1;
+# C3's plain version is K1's then K2's, 35 + 25; C4's is K1's.
 BOUND_TERMS = {  # name -> (bytes per cell, bytes per row, operations per cell)
     "rle_encode": (2, 4, 35),
     "rle_decode": (2, 4, 25),
     "text_encode": (5, 8, 59),
     "text_decode": (6, 4, 37),
+    "probe_scan_only": (2, 4, 11),
+    "probe_scan_replaced": (2, 4, 35),
+    "probe_roundtrip": (2, 4, 60),
+    "probe_blocked_encode": (2, 4, 35),
 }
 VALID_WORDS = [b"0|0\t", b"0|1\t", b"1|0\t", b"1|1\t"]
 ESCAPE_WORDS = [b"2|0\t", b"./.\t", b"0/1\t", b"9|9\t", b"1|2\t"]
-ROUTES = {  # route -> VCFC_PARSE, its kernels, host-clock layers per engine call
-    "parse route": (None, ("rle_encode", "rle_decode"), {
+ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK")
+# route -> its environment, its kernels, host-clock layers per engine call
+# (None: the call is the parse route's, which the route does not change)
+ROUTES = {
+    "parse route": ({}, ("rle_encode", "rle_decode"), {
         "compress": {"parse": (engine, "parse_vcf_bytes"),
                      "device layer": (engine, "encode_on_device"),
                      "assembly": (fast, "assemble_vcfc_native")},
         "decompress": {"parse": (fast, "parse_vcfc_native"),
                        "device layer": (engine, "decode_on_device"),
                        "render": (fast, "assemble_vcf_native")}}),
-    "text route": ("device", ("text_encode", "text_decode"), {
+    "text route": ({"VCFC_PARSE": "device"}, ("text_encode", "text_decode"), {
         "compress": {"index": (native, "index_lines"),
                      "gather": (native, "gather_text"),
                      "device layer": (engine, "encode_text_on_device"),
@@ -119,6 +155,11 @@ ROUTES = {  # route -> VCFC_PARSE, its kernels, host-clock layers per engine cal
         "decompress": {"parse": (fast, "parse_vcfc_native"),
                        "device layer": (engine, "decode_text_on_device"),
                        "render from text": (fast, "assemble_vcf_from_text")}}),
+    "unpack route": ({"VCFC_UNPACK": "device"}, ("rle_decode",), {
+        "compress": None,
+        "decompress": {"packed parse": (fast, "parse_vcfc_packed_native"),
+                       "device layer": (engine, "unpack_decode_on_device"),
+                       "render": (fast, "assemble_vcf_native")}}),
 }
 
 
@@ -128,8 +169,10 @@ def phase1_build():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t = time.perf_counter()
-    path = build("rle_kernels")
-    print(f"phase 1: built {path.name} in {time.perf_counter() - t:.1f} s")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        paths = list(pool.map(build, ("rle_kernels", "probe_kernels")))
+    print(f"phase 1: built {', '.join(p.name for p in paths)} in "
+          f"{time.perf_counter() - t:.1f} s")
     subprocess.run(["make", "-C", str(REPO / "native"), "libvcfc_host.so"],
                    check=True, stdout=sys.stderr)
     if not native.available():
@@ -239,20 +282,40 @@ def text_encode_cases(rng, vcf, cases):
     return out
 
 
-def _compare(kernel, plain, x, n):
-    got, want = kernel(x, n), plain(x, n)
+def probe_cases():
+    """(name, codes, n_samples) for C1-C4: the ablation's plane, n below
+    the width, widths no group of cells divides, and rows all escapes and
+    all 0|0."""
+    cases = [("probe shape 8192x2560", gt_codes(8192, 2560), 2560),
+             ("n < width 256x2560", gt_codes(256, 2560, 1), 2504)]
+    for w in (1, 17, 192, 384, 2504, 50000):
+        cases.append((f"width {w}", gt_codes(8 if w == 50000 else 256, w, w), w))
+    rows = gt_codes(256, 2560, 2)
+    rows[::3] = 4
+    rows[1::3] = 0
+    cases.append(("all-escape and all-zero rows 256x2560", rows, 2560))
+    return cases
+
+
+def _compare(got, want):
     torch.cuda.synchronize()
     mismatches = sum(int((a != b).sum()) for a, b in zip(got, want))
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
-    return mismatches, err, got
+    return mismatches, err
 
 
 def phase2_kernels(rng, vcf):
-    stats = {name: {"cases": 0, "mismatches": 0, "max_abs_err": 0} for name in KERNELS}
+    stats = {name: {"cases": 0, "mismatches": 0, "max_abs_err": 0}
+             for name in [*KERNELS, *PROBES]}
 
-    def check(name, case, x, n):
-        kernel, plain, _ = KERNELS[name]
-        mism, err, got = _compare(kernel, plain, x, n)
+    def check(name, case, x, n, cells=None, want=None):
+        """The kernel against its plain version (or against want)."""
+        kernel, plain = (KERNELS[name] if name in KERNELS else PROBES[name])[:2]
+        if cells is not None:
+            kernel = functools.partial(kernel, cells=cells)
+            case = f"{case} cells={cells}"
+        got = kernel(x, n)
+        mism, err = _compare(got, plain(x, n) if want is None else want)
         st = stats[name]
         st["cases"] += 1
         st["mismatches"] += mism
@@ -275,6 +338,17 @@ def phase2_kernels(rng, vcf):
         check("rle_decode", case, flags, n)
     for case, flags, n in text_inputs:
         check("text_decode", case, flags, n)
+    del decode_inputs, text_inputs
+    for case, codes, n in probe_cases():
+        x = torch.from_numpy(codes).cuda()
+        k1 = cuda_rle_encode(x, n)
+        for cells in PROBE_CELLS:
+            check("probe_scan_only", case, x, n, cells)
+            check("probe_blocked_encode", case, x, n, cells)
+            check("probe_blocked_encode", f"{case} against K1", x, n, cells, want=k1)
+        check("probe_scan_replaced", case, x, n)
+        check("probe_roundtrip", case, x, n)
+    check("probe_roundtrip", "width 65536", torch.from_numpy(gt_codes(16, 65536, 3)).cuda(), 65500)
     for name, st in stats.items():
         print(f"phase 2: {name}: {st['cases']} cases, {st['mismatches']} mismatching elements, "
               f"max abs error {st['max_abs_err']}")
@@ -291,17 +365,36 @@ def host_reference(vcf: bytes) -> bytes:
 
 
 @contextlib.contextmanager
-def parse_env(value):
-    """VCFC_PARSE set to value (None: unset) inside, restored after."""
-    saved = os.environ.pop("VCFC_PARSE", None)
-    if value is not None:
-        os.environ["VCFC_PARSE"] = value
+def route_env(env):
+    """The route variables (ROUTE_ENV) as env sets them, the others unset,
+    inside; restored after."""
+    saved = {var: os.environ.pop(var, None) for var in ROUTE_ENV}
+    os.environ.update(env)
     try:
         yield
     finally:
-        os.environ.pop("VCFC_PARSE", None)
-        if saved is not None:
-            os.environ["VCFC_PARSE"] = saved
+        for var, value in saved.items():
+            os.environ.pop(var, None)
+            if value is not None:
+                os.environ[var] = value
+
+
+@contextlib.contextmanager
+def batch_shapes(mod, attr):
+    """Record the shape of the first argument of every call of mod.attr
+    made inside."""
+    shapes = []
+    fn = getattr(mod, attr)
+
+    def spy(*args, **kwargs):
+        shapes.append(tuple(args[0].shape))
+        return fn(*args, **kwargs)
+
+    setattr(mod, attr, spy)
+    try:
+        yield shapes
+    finally:
+        setattr(mod, attr, fn)
 
 
 @contextlib.contextmanager
@@ -329,12 +422,12 @@ def layer_clock(layers):
             setattr(mod, attr, saved[name])
 
 
-def _cli_round_trip(prefix: bytes, parse: str | None):
+def _cli_round_trip(prefix: bytes, route_vars: dict):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]))
-    env.pop("VCFC_PARSE", None)
-    if parse is not None:
-        env["VCFC_PARSE"] = parse
+    for var in ROUTE_ENV:
+        env.pop(var, None)
+    env.update(route_vars)
     with tempfile.TemporaryDirectory() as tmp:
         src, mid, out = (os.path.join(tmp, f) for f in ("in.vcf", "in.vcfc", "out.vcf"))
         with open(src, "wb") as f:
@@ -352,7 +445,8 @@ def _cli_round_trip(prefix: bytes, parse: str | None):
 
 def phase3_main_path(vcf: bytes):
     """Each route once on the cohort, the counts set to 0 just before it
-    and read just after; returns {route: its run}."""
+    and read just after; returns {route: its run}.  A route whose compress
+    is the parse route's decompresses the parse route's bytes."""
     reference = host_reference(vcf)
     cut = vcf.index(b"\n", vcf.index(b"\n#CHROM") + 1) + 1  # end of the header
     for _ in range(CLI_LINES):
@@ -360,20 +454,25 @@ def phase3_main_path(vcf: bytes):
     prefix = vcf[:cut]
     prefix_reference = host_reference(prefix)
     runs = {}
-    for route, (parse, _kernels, layers) in ROUTES.items():
-        with parse_env(parse):
+    for route, (env, _kernels, layers) in ROUTES.items():
+        with route_env(env):
             for name in LAUNCHES:
                 LAUNCHES[name] = 0
-            with layer_clock(layers["compress"]) as compress_layers:
-                t = time.perf_counter()
-                vcfc = engine.compress(vcf)
-                compress_s = time.perf_counter() - t
-            with layer_clock(layers["decompress"]) as decompress_layers:
+            if layers["compress"] is None:
+                vcfc, compress_s, compress_layers = runs["parse route"]["vcfc"], None, None
+            else:
+                with layer_clock(layers["compress"]) as compress_layers:
+                    t = time.perf_counter()
+                    vcfc = engine.compress(vcf)
+                    compress_s = time.perf_counter() - t
+            with layer_clock(layers["decompress"]) as decompress_layers, \
+                    batch_shapes(engine, "unpack_rle_decode") as packed_batches:
                 t = time.perf_counter()
                 back = engine.decompress(vcfc)
                 decompress_s = time.perf_counter() - t
             counts = dict(LAUNCHES)
-        print(f"phase 3: {route}: compress {compress_s:.3f} s -> {len(vcfc):,} bytes; "
+        shown = "the parse route's" if compress_s is None else f"{compress_s:.3f} s ->"
+        print(f"phase 3: {route}: compress {shown} {len(vcfc):,} bytes; "
               f"decompress {decompress_s:.3f} s; launches {counts}")
         if vcfc != reference:
             raise SystemExit(f"phase 3: {route}: compress bytes differ from the native "
@@ -382,7 +481,13 @@ def phase3_main_path(vcf: bytes):
             raise SystemExit(f"phase 3: {route}: decompress does not restore the input")
         print(f"phase 3: {route}: compress == native host executor bytes; "
               "decompress restores the input")
-        cli_vcfc, cli_back = _cli_round_trip(prefix, parse)
+        if packed_batches:
+            rows, m = packed_batches[0]
+            s_pad = -(-SAMPLES // 128) * 128
+            print(f"phase 3: {route}: packed width M = {m} against S_pad = {s_pad}; H2D per "
+                  f"batch of {rows} lines {rows * (m + 4):,} bytes (flags + counts) against "
+                  f"{rows * s_pad:,} for the positional plane ({len(packed_batches)} batches)")
+        cli_vcfc, cli_back = _cli_round_trip(prefix, env)
         if cli_vcfc != prefix_reference or cli_back != prefix:
             raise SystemExit(f"phase 3: {route}: CLI round trip differs")
         print(f"phase 3: {route}: CLI compress/decompress round trip ok ({CLI_LINES} lines)")
@@ -390,29 +495,6 @@ def phase3_main_path(vcf: bytes):
                        "counts": counts, "layers": {"compress": compress_layers,
                                                     "decompress": decompress_layers}}
     return runs
-
-
-def _median_ms(fn, xs, n):
-    """Median device time of one launch of fn.  Each trial queues
-    LAUNCHES_PER_TRIAL launches behind a device-side sleep, so that the
-    host's cost of enqueueing them stays out of the span the events time;
-    the launches take the inputs xs in turn."""
-    fn(xs[0], n)
-    torch.cuda.synchronize()
-    times = []
-    launch = 0
-    for _ in range(TIMING_TRIALS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(LAUNCHES_PER_TRIAL):
-            fn(xs[launch % len(xs)], n)
-            launch += 1
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / LAUNCHES_PER_TRIAL)
-    return statistics.median(times)
 
 
 def int32_ops_per_s() -> float:
@@ -430,36 +512,41 @@ def bound(name, L, W, int_ops_per_s):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def phase5_times(vcf, stats, launches):
+def _kernel_row(name, source, replaces, launches, stats, shape, ms, plain_ms, int_rate):
+    """One entry of the "kernels" line."""
+    bound_ms, bound_by = bound(name, *shape, int_rate)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": stats[name]["max_abs_err"],
+            "mismatches": stats[name]["mismatches"], "shape": list(shape), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase5_times(vcf, stats, launches, int_rate):
     L, W = TIMED_SHAPE
     codes = torch.from_numpy(parse_vcf_bytes(vcf).codes[:L]).cuda()
     codes = torch.nn.functional.pad(codes, (0, W - SAMPLES))
     text = torch.from_numpy(cohort_text_batch(vcf)).cuda()
     flags = rle_encode_plain(codes, SAMPLES)[0]
     inputs = {"rle_encode": codes, "rle_decode": flags, "text_encode": text, "text_decode": flags}
-    int_rate = int32_ops_per_s()
     print(f"phase 5: INT32 rate {int_rate:.6e} ops/s "
           f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs), "
           f"HBM {HBM_BYTES_PER_S:.3e} B/s")
     rows = []
     for name, (kernel, plain, replaces) in KERNELS.items():
         x = inputs[name]
-        copies = -(-ROTATE_BYTES // x.nbytes)
-        xs = [x.clone() for _ in range(copies)]
-        warm_ms = _median_ms(kernel, [x], SAMPLES)
-        ms = _median_ms(kernel, xs, SAMPLES)
-        plain_ms = _median_ms(plain, xs, SAMPLES)
-        del xs
-        bound_ms, bound_by = bound(name, L, W, int_rate)
+        xs = rotated(x)
+        warm_ms = median_ms(kernel, [x], SAMPLES)
+        ms = median_ms(kernel, xs, SAMPLES)
+        plain_ms = median_ms(plain, xs, SAMPLES)
+        row = _kernel_row(name, SOURCE, replaces, launches[name], stats, (L, W), ms, plain_ms,
+                          int_rate)
         print(f"phase 5: {name} {L}x{W}: kernel {ms:.5f} ms (one input, L2-warm: "
-              f"{warm_ms:.5f} ms), plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms by "
-              f"{bound_by} (median of {TIMING_TRIALS} trials of {LAUNCHES_PER_TRIAL} launches, "
-              f"cycling through {copies} copies of the input)")
-        rows.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],
-                     "mismatches": stats[name]["mismatches"], "shape": [L, W], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None})
+              f"{warm_ms:.5f} ms), plain {plain_ms:.5f} ms, bound {row['bound_ms']:.5f} ms by "
+              f"{row['bound_by']} (median of {TRIALS} trials of {LAUNCHES_PER_TRIAL} launches, "
+              f"cycling through {len(xs)} copies of the input)")
+        del xs
+        rows.append(row)
     return rows
 
 
@@ -505,15 +592,19 @@ def phase6_breakdown(vcf: bytes, runs):
     compress and decompress per route."""
     for route, run in runs.items():
         for call, seconds in run["layers"].items():
+            if seconds is None:  # the parse route's call
+                continue
             if not all(seconds.values()):
                 raise SystemExit(f"phase 6: {route} {call} did not go through every layer: "
                                  f"{seconds}")
             print(f"phase 6: {route} {call} host clock (phase 3's run, "
                   f"{run[call + '_s']:.3f} s): "
                   + ", ".join(f"{layer} {s:.3f} s" for layer, s in seconds.items()))
-        with parse_env(ROUTES[route][0]):
-            for call, fn in (("compress", lambda: engine.compress(vcf)),
-                             ("decompress", lambda: engine.decompress(run["vcfc"]))):
+        calls = [("decompress", lambda: engine.decompress(run["vcfc"]))]
+        if run["compress_s"] is not None:
+            calls.insert(0, ("compress", lambda: engine.compress(vcf)))
+        with route_env(ROUTES[route][0]):
+            for call, fn in calls:
                 wall, busy, kinds = _device_busy(fn)
                 if busy > wall:
                     raise SystemExit(f"phase 6: {route} {call} device busy {busy} ms exceeds "
@@ -521,6 +612,39 @@ def phase6_breakdown(vcf: bytes, runs):
                 print(f"phase 6: {route} {call} profiled wall {wall:.3f} ms, device busy "
                       f"{busy:.3f} ms, device idle share {1 - busy / wall:.4f}; "
                       + ", ".join(f"{kind} {ms:.3f} ms" for kind, ms in kinds.items()))
+
+
+def phase7_ablation(stats, int_rate):
+    """The K1/K2 ablation on its own, the counts set to 0 just before it
+    and read just after; returns the probes' rows of the "kernels" line."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    t = time.perf_counter()
+    result = kernel_ceiling.run("cuda")
+    counts = {name: LAUNCHES[name] for name in PROBES}
+    print(f"phase 7: kernel_ceiling in {time.perf_counter() - t:.1f} s; probe launches {counts}")
+    for line in kernel_ceiling.table(result):
+        print(f"phase 7: {line}")
+    print(json.dumps({"kernel_ceiling": result}))
+    if not all(counts.values()):
+        raise SystemExit(f"phase 7: a probe did not launch in the ablation: {counts}")
+    times, plain = result["times_ms"], result["plain_ms"]
+    rows = []
+    for name, (_kernel, _plain, replaces, label, plain_label) in PROBES.items():
+        if name in CELLS_PROBES:
+            by_cells = {c: times[f"{label} {c}"] for c in PROBE_CELLS}
+            best = min(by_cells, key=by_cells.get)
+            print(f"phase 7: {name} by cells a thread: "
+                  + ", ".join(f"{c}: {ms:.5f} ms" for c, ms in by_cells.items())
+                  + f"; the kernels line reports cells={best}")
+            ms = by_cells[best]
+        else:
+            ms = times[label]
+        rows.append(_kernel_row(name, PROBE_SOURCE, replaces, counts[name], stats,
+                                result["shape"], ms, plain[plain_label], int_rate))
+        if name in CELLS_PROBES:
+            rows[-1]["cells"] = best
+    return rows
 
 
 def main() -> int:
@@ -533,25 +657,33 @@ def main() -> int:
     stats = phase2_kernels(rng, vcf)
     runs = phase3_main_path(vcf)
 
-    launches = {}
-    for route, (_parse, kernels, _layers) in ROUTES.items():
+    launches = {}  # a kernel on several routes reports its first route's count
+    for route, (_env, kernels, _layers) in ROUTES.items():
         counts = runs[route]["counts"]
         if not all(counts[name] > 0 for name in kernels):
             raise SystemExit(f"phase 4: a kernel did not run on the {route}: {counts}")
-        launches.update((name, counts[name]) for name in kernels)
+        print(f"phase 4: {route}: " + ", ".join(f"{name} {counts[name]}" for name in kernels))
+        for name in kernels:
+            launches.setdefault(name, counts[name])
     print(f"phase 4: every kernel launched on its route: {launches}")
 
-    kernel_rows = phase5_times(vcf, stats, launches)
+    int_rate = int32_ops_per_s()
+    kernel_rows = phase5_times(vcf, stats, launches, int_rate)
     text_bytes = SAMPLES * LINES * 4  # "a|b\t" per genotype cell
+
+    def rate(seconds):
+        return None if seconds is None else text_bytes / seconds / 1e9
+
     print(json.dumps({"e2e": {
         "samples": SAMPLES, "lines": LINES, "vcf_bytes": len(vcf),
         "genotype_text_bytes": text_bytes, "routes": {
             route: {"vcfc_bytes": len(run["vcfc"]), "compress_s": run["compress_s"],
                     "decompress_s": run["decompress_s"],
-                    "compress_genotype_GB_per_s": text_bytes / run["compress_s"] / 1e9,
-                    "decompress_genotype_GB_per_s": text_bytes / run["decompress_s"] / 1e9}
+                    "compress_genotype_GB_per_s": rate(run["compress_s"]),
+                    "decompress_genotype_GB_per_s": rate(run["decompress_s"])}
             for route, run in runs.items()}}}))
     phase6_breakdown(vcf, runs)
+    kernel_rows += phase7_ablation(stats, int_rate)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - wall:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

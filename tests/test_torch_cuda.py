@@ -14,12 +14,13 @@ import torch
 
 from vcfc_tpu_torch import engine
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
-from vcfc_tpu_torch.ops import _build, cuda_rle
+from vcfc_tpu_torch.ops import _build, cuda_rle, probe
 from vcfc_tpu_torch.ops.rle import (
     rle_decode_plain,
     rle_encode_plain,
     text_rle_decode_plain,
     text_rle_encode_plain,
+    unpack_packed_flags,
 )
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +110,59 @@ def test_engine_on_cuda_matches_cpu(cuda_device, monkeypatch, parse):
     assert vcfc == engine.compress(vcf, force_device=True, device="cpu")
     assert engine.decompress(vcfc, force_device=True, device=cuda_device) == vcf
     assert all(cuda_rle.LAUNCHES[k] > before[k] for k in kernels)
+
+
+@pytest.mark.parametrize(
+    "L,W,S,p",
+    [
+        (256, 2560, 2560, P),  # the ablation's shape
+        (64, 384, 300, P),  # n < width
+        (64, 1, 1, P),
+        (64, 17, 17, P),
+        (64, 192, 192, P),
+        (64, 2504, 2504, P),  # a width no group of cells divides
+        (4, 50000, 50000, P),
+        (64, 4096, 4000, [0.0, 0, 0, 0, 1.0]),  # all escapes
+        (64, 4096, 4000, [1.0, 0, 0, 0, 0]),  # all 0|0: runs past every tile
+    ],
+)
+def test_probes_match_plain(cuda_device, L, W, S, p):
+    """C1 and C4 at every cells a thread, C2, C3; C4's outputs are K1's."""
+    rng = np.random.default_rng(W + S + 2)
+    codes = rng.choice(5, size=(L, W), p=p).astype(np.uint8)
+    x = torch.from_numpy(codes).to(cuda_device)
+    k1 = cuda_rle.cuda_rle_encode(x, S)
+    for cells in cuda_rle.PROBE_CELLS:
+        _assert_equal(cuda_rle.cuda_probe_scan_only(x, S, cells), probe.scan_only_plain(x, S))
+        _assert_equal(cuda_rle.cuda_probe_blocked_encode(x, S, cells), k1)
+    _assert_equal(k1, rle_encode_plain(x, S))
+    _assert_equal(cuda_rle.cuda_probe_scan_replaced(x, S), probe.scan_replaced_plain(x, S))
+    _assert_equal(cuda_rle.cuda_probe_roundtrip(x, S), probe.roundtrip_plain(x, S))
+
+
+def test_roundtrip_probe_takes_wide_rows_and_refuses_wider(cuda_device):
+    rng = np.random.default_rng(65536)
+    x = torch.from_numpy(rng.choice(5, size=(8, 65536), p=P).astype(np.uint8)).to(cuda_device)
+    _assert_equal(cuda_rle.cuda_probe_roundtrip(x, 65500), probe.roundtrip_plain(x, 65500))
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_rle.cuda_probe_roundtrip(torch.zeros((1, 1 << 18), dtype=torch.uint8,
+                                                  device=cuda_device), 1 << 18)
+
+
+def test_unpack_on_cuda_matches_cpu(cuda_device):
+    rng = np.random.default_rng(7)
+    packed = rng.integers(0, 256, (256, 640), dtype=np.uint8)
+    nflags = rng.integers(0, 641, 256).astype(np.int32)
+    want = unpack_packed_flags(torch.from_numpy(packed), torch.from_numpy(nflags), 2560)
+    got = unpack_packed_flags(torch.from_numpy(packed).to(cuda_device),
+                              torch.from_numpy(nflags).to(cuda_device), 2560)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_unpack_route_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    monkeypatch.setenv("VCFC_UNPACK", "device")
+    vcf = generate_realistic_vcf(300, 600, seed=9)
+    vcfc = engine.compress(vcf, force_device=True, device="cpu")
+    before = cuda_rle.LAUNCHES["rle_decode"]
+    assert engine.decompress(vcfc, force_device=True, device=cuda_device) == vcf
+    assert cuda_rle.LAUNCHES["rle_decode"] > before

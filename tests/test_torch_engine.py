@@ -152,20 +152,17 @@ def test_cli_usage_errors(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("var", ["VCFC_PARSE", "VCFC_UNPACK"])
 def test_later_slice_routes_raise(small_vcf, small_vcfc, monkeypatch, var):
-    """VCFC_UNPACK=device is still refused; VCFC_PARSE=device now runs the
-    text route (K3/K4's plain versions here) instead of the parse route."""
+    """Each env-selected device route runs instead of the parse route (on
+    the plain kernel versions here): VCFC_PARSE=device the text route in
+    both directions, VCFC_UNPACK=device the packed-unpack route in
+    decompress."""
     monkeypatch.setenv(var, "device")
-    if var == "VCFC_UNPACK":
-        with pytest.raises(NotImplementedError, match=f"{var}=device"):
-            engine.compress(small_vcf, device=CPU)
-        with pytest.raises(NotImplementedError, match=f"{var}=device"):
-            engine.decompress(small_vcfc, device=CPU)
-        return
 
     def parse_route(*_args):
         raise AssertionError("the parse route was taken")
 
-    monkeypatch.setattr(engine, "encode_on_device", parse_route)
+    if var == "VCFC_PARSE":
+        monkeypatch.setattr(engine, "encode_on_device", parse_route)
     monkeypatch.setattr(engine, "decode_on_device", parse_route)
     assert engine.compress(small_vcf, force_device=True, device=CPU) == small_vcfc
     assert engine.decompress(small_vcfc, force_device=True, device=CPU) == small_vcf
@@ -207,4 +204,6 @@ def test_port_imports_neither_jax_nor_triton():
     out = json.loads(r.stdout)
     assert out["bad"] == []
     assert {"vcfc_tpu_torch.engine", "vcfc_tpu_torch.host.native",
-            "vcfc_tpu_torch.eval.random_vcf", "vcfc_tpu_torch.ops.cuda_rle"} <= set(out["imported"])
+            "vcfc_tpu_torch.eval.random_vcf", "vcfc_tpu_torch.ops.cuda_rle",
+            "vcfc_tpu_torch.ops.probe", "vcfc_tpu_torch.eval.kernel_ceiling",
+            "vcfc_tpu_torch.eval.bench_codes", "vcfc_tpu_torch.eval.timing"} <= set(out["imported"])

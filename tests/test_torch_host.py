@@ -112,6 +112,28 @@ def test_vcfc_parse_and_decode_assemblies_match(name, data_dir):
 
 
 @pytest.mark.parametrize("name", INPUTS)
+def test_packed_vcfc_parse_matches(name, data_dir):
+    """The VCFC_UNPACK=device route's host side: the packed parse, with
+    and without a scan made beforehand, the positional parse reusing that
+    scan, ``scan_vcfc_stream`` against the hand-made scan, and the native
+    scan_packed entry point itself."""
+    vcfc = jax_vcf.compress_bytes(_inputs(name, data_dir))
+    _assert_same(fast.parse_vcfc_packed_native(vcfc), jax_fast.parse_vcfc_packed_native(vcfc))
+    header = vcf.parse_metadata_headers(vcfc)
+    raw = np.frombuffer(vcfc, np.uint8)
+    scan = (header, *native.scan_vcfc(raw, header.data_offset, len(vcfc) // 10 + 16))
+    for got, want in zip(fast.scan_vcfc_stream(vcfc)[1:], scan[1:]):
+        np.testing.assert_array_equal(got, want)
+    _assert_same(fast.parse_vcfc_packed_native(vcfc, scan=scan),
+                 jax_fast.parse_vcfc_packed_native(vcfc))
+    _assert_same(fast.parse_vcfc_native(vcfc, scan=scan), jax_fast.parse_vcfc_native(vcfc))
+    S = header.schema.sample_count
+    for M in (128, 1024):  # 128 is too narrow for some lines: their status is 1
+        _assert_same(native.scan_packed(raw, *scan[1:], S, M),
+                     jax_native.scan_packed(raw, *scan[1:], S, M))
+
+
+@pytest.mark.parametrize("name", INPUTS)
 def test_native_text_entry_points_match(name, data_dir):
     data = _inputs(name, data_dir)
     header = vcf.parse_metadata_headers(data)

@@ -10,10 +10,14 @@ copy because arrays over a bytes buffer are read-only).
 
 Ported so far: ``engine.compress`` / ``engine.decompress`` and their
 streaming forms, on the hand-written CUDA kernels of
-``csrc/rle_kernels.cu``: the parse route (K1/K2) and the
-``VCFC_PARSE=device`` text route (K3/K4).  The host layers (``host``,
-``format``, ``eval.random_vcf``) are the port's own copies of
-``vcfc_tpu``'s; this package imports neither ``jax`` nor ``vcfc_tpu``.
+``csrc/rle_kernels.cu``: the parse route (K1/K2), the
+``VCFC_PARSE=device`` text route (K3/K4) and the ``VCFC_UNPACK=device``
+decompress route (packed flags unpacked on the device, then K2); and the
+K1/K2 ablation ``eval.kernel_ceiling`` on the probes of
+``csrc/probe_kernels.cu`` (C1-C4).  The host layers (``host``,
+``format``, ``eval.random_vcf``, ``eval.bench_codes``) are the port's own
+copies of the JAX package's; this package imports neither ``jax`` nor
+``vcfc_tpu``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -6,7 +6,10 @@ assembly; ``decompress`` is native .vcfc parse -> RLE decode on the device
 runtime) the text route runs instead: compress gathers each line's
 genotype text and classifies and encodes it on the device (K3), and
 decompress decodes and renders the text on the device (K4), which the host
-then memcpys.  The host layers are the port's own ``host`` and ``format``
+then memcpys.  Under ``VCFC_UNPACK=device`` (with the native runtime)
+decompress takes the packed-unpack route: the host extracts each line's
+packed flag bytes, and the device unpacks them to the positional plane and
+decodes it (K2).  The host layers are the port's own ``host`` and ``format``
 packages, copies of ``vcfc_tpu``'s.  Lines go to the device in
 zero-padded batches of the JAX engine's layout (multiples of 256 rows by
 ``S_pad = round_up(S, 128)`` columns), so the planes handed to the native
@@ -30,7 +33,14 @@ from .format.vcf import compress_bytes, decompress_bytes, parse_metadata_headers
 from .host import fast, native
 from .host.assemble import assemble_vcf, assemble_vcfc, parse_vcfc_bytes
 from .host.parse import ParsedVcf, parse_vcf_bytes
-from .ops.rle import render_text, rle_decode, rle_encode, text_rle_decode, text_rle_encode
+from .ops.rle import (
+    render_text,
+    rle_decode,
+    rle_encode,
+    text_rle_decode,
+    text_rle_encode,
+    unpack_rle_decode,
+)
 
 _LINE_BATCH = 2048  # a multiple of the 256-row batch granularity
 # Below this many genotype cells the device round trip costs more than the
@@ -67,15 +77,6 @@ def _device(device) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
-
-
-def _refuse_unported_routes() -> None:
-    if os.environ.get("VCFC_UNPACK") == "device":
-        raise NotImplementedError(
-            "VCFC_UNPACK=device is not ported to vcfc_tpu_torch yet: its "
-            "kernel comes with a later slice of the port (the packed-unpack "
-            "route); unset it to use the RLE kernels"
-        )
 
 
 def _text_route() -> bool:
@@ -209,12 +210,56 @@ def decompress_device_text(parsed, line_batch: int, force_device: bool, device) 
     return fast.assemble_vcf_from_text(parsed, text, decoded)
 
 
+def unpack_decode_on_device(packed: np.ndarray, nflags: np.ndarray, S: int, line_batch: int,
+                            device) -> tuple:
+    """Unpack (L, M) packed flag bytes to the positional plane and
+    RLE-decode it, batch by batch (H2D copy of the packed bytes and the
+    counts, unpack, K2, D2H copy).  Returns (codes (L, S_pad) uint8,
+    decoded (L,) int32)."""
+    L, M = packed.shape
+    S_pad = max(_round_up(S, 128), 128)
+    line_batch = _adaptive_line_batch(line_batch, S_pad)
+    codes = np.zeros((L, S_pad), np.uint8)
+    decoded = np.zeros(L, np.int32)
+    for lo in range(0, L, line_batch):
+        hi = min(lo + line_batch, L)
+        batch = np.zeros((line_batch, M), np.uint8)
+        batch[: hi - lo] = packed[lo:hi]
+        counts = np.zeros(line_batch, np.int32)
+        counts[: hi - lo] = nflags[lo:hi]
+        c, d = unpack_rle_decode(torch.from_numpy(batch).to(device),
+                                 torch.from_numpy(counts).to(device), S, out_width=S_pad)
+        codes[lo:hi] = c[: hi - lo].cpu().numpy()
+        decoded[lo:hi] = d[: hi - lo].cpu().numpy()
+    return codes, decoded
+
+
+def decompress_device_unpack(vcfc: bytes, line_batch: int, force_device: bool, device):
+    """The VCFC_UNPACK=device decompress route: the host extracts PACKED
+    flag bytes (O(compressed size)), and the device unpacks them to the
+    positional plane and decodes it (``unpack_decode_on_device``), so no
+    O(L * W) positional plane is built on the host.  The packed width M is
+    set by the longest line body in the file.  Returns (bytes, None), or
+    (None, scan) to fall back (tiny input): the scan tuple spares the
+    fallback parse the header parse and stream scan already paid."""
+    # cheap pre-gate (header + native scan) BEFORE the packed extraction:
+    # a declining call must not pay the full parse twice
+    scan = fast.scan_vcfc_stream(vcfc)
+    header, line_off = scan[0], scan[1]
+    S = header.schema.sample_count
+    L = len(line_off)
+    if L == 0 or S == 0 or (L * S < _DEVICE_MIN_CELLS and not force_device):
+        return None, scan
+    parsed = fast.parse_vcfc_packed_native(vcfc, scan=scan)
+    codes, decoded = unpack_decode_on_device(parsed.flags, parsed.nflags, S, line_batch, device)
+    return fast.assemble_vcf_native(parsed, codes, decoded), None
+
+
 def compress(
     vcf: bytes, line_batch: int = _LINE_BATCH, force_device: bool = False, device=None
 ) -> bytes:
     """VCF bytes -> .vcfc bytes: parse -> RLE encode on the device -> assemble."""
     device = _device(device)
-    _refuse_unported_routes()
     force_device = _force_device(force_device)
     line_batch = _round_up(max(line_batch, 1), 256)
     if _text_route():
@@ -241,12 +286,16 @@ def decompress(
 ) -> bytes:
     """.vcfc bytes -> VCF bytes: unpack -> RLE decode on the device -> render."""
     device = _device(device)
-    _refuse_unported_routes()
     force_device = _force_device(force_device)
     line_batch = _round_up(max(line_batch, 1), 256)
     use_native = native.available()
+    scan = None
+    if use_native and os.environ.get("VCFC_UNPACK") == "device":
+        out, scan = decompress_device_unpack(vcfc, line_batch, force_device, device)
+        if out is not None:
+            return out
     if use_native:
-        parsed = fast.parse_vcfc_native(vcfc)
+        parsed = fast.parse_vcfc_native(vcfc, scan=scan)
         if _text_route():
             out = decompress_device_text(parsed, line_batch, force_device, device)
             if out is not None:

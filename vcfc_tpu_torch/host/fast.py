@@ -1,7 +1,6 @@
 """Native-accelerated host paths (thread-parallel C++ via ctypes).
 
-The port's copy of ``vcfc_tpu/host/fast.py``, without the packed-flag
-parse of the ``VCFC_UNPACK=device`` route, which the port does not have.
+The port's copy of ``vcfc_tpu/host/fast.py``.
 
 Mirrors host/assemble.py's interfaces on the positional-flag
 representation.  Unlike the numpy fallback, the native decode path
@@ -72,13 +71,25 @@ class NativeParsedVcfc(ParsedVcfc):
     esc_len: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
 
 
-def parse_vcfc_native(raw: bytes, width: int | None = None) -> NativeParsedVcfc:
-    """Walk a .vcfc stream into positional flags and the escape side
-    channel with the native runtime (thread-parallel over lines)."""
+def scan_vcfc_stream(raw: bytes) -> tuple:
+    """Parse the header of a .vcfc stream and index its compressed lines.
+    Returns (header, line_off, line_len, req_len)."""
     header = parse_metadata_headers(raw)
-    raw_np = np.frombuffer(raw, np.uint8)
     max_lines = max((len(raw) - header.data_offset) // 10 + 2, 16)
-    line_off, line_len, req_len = native.scan_vcfc(raw_np, header.data_offset, max_lines)
+    line_off, line_len, req_len = native.scan_vcfc(
+        np.frombuffer(raw, np.uint8), header.data_offset, max_lines
+    )
+    return header, line_off, line_len, req_len
+
+
+def parse_vcfc_native(
+    raw: bytes, width: int | None = None, scan=None
+) -> NativeParsedVcfc:
+    """``scan`` may carry ``scan_vcfc_stream(raw)``'s result, so gating
+    callers (engine.decompress_device_unpack's declining pre-gate) don't
+    pay the header parse + stream scan twice."""
+    header, line_off, line_len, req_len = scan or scan_vcfc_stream(raw)
+    raw_np = np.frombuffer(raw, np.uint8)
     S = header.schema.sample_count
     L = len(line_off)
     W = width or max(S, 1)
@@ -107,6 +118,52 @@ def parse_vcfc_native(raw: bytes, width: int | None = None) -> NativeParsedVcfc:
     nflags = (flagpos > 0).sum(axis=1).astype(np.int32)
     return NativeParsedVcfc(
         header, raw, line_off, line_len, req_len, flagpos, nflags, oracle_line,
+        esc_count, esc_base, esc_sample, esc_off, esc_len,
+    )
+
+
+def parse_vcfc_packed_native(raw: bytes, scan=None) -> NativeParsedVcfc:
+    """Like parse_vcfc_native, but ``flags`` holds PACKED (left-aligned)
+    flag bytes and ``nflags`` their counts — the device-unpack decode
+    route (ops/rle.py::unpack_rle_decode): the host never materializes
+    the O(L*W) positional plane, so host work and host->device traffic
+    scale with the compressed size instead of the cohort width.
+    ``scan`` may carry ``scan_vcfc_stream(raw)``'s result, so gating
+    callers don't pay the stream scan twice."""
+    header, line_off, line_len, req_len = scan or scan_vcfc_stream(raw)
+    raw_np = np.frombuffer(raw, np.uint8)
+    S = header.schema.sample_count
+    L = len(line_off)
+    if L == 0:
+        return NativeParsedVcfc(
+            header, raw, line_off, line_len, req_len,
+            np.zeros((0, 128), np.uint8), np.zeros(0, np.int32), np.zeros(0, bool),
+        )
+    # per-line flag-byte upper bound: the whole sample region (escape
+    # text inflates it, but escape-heavy lines are rare); cap at S since
+    # every flag covers >= 1 sample
+    max_body = int((line_len.astype(np.int64) - 4 - req_len - 1).max())
+    M = min(max(max_body, 1), max(S, 1))
+    M = (M + 127) // 128 * 128
+    packed, nflags, esc_count, status = native.scan_packed(
+        raw_np, line_off, line_len, req_len, S, M
+    )
+    bad = status == 1
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        from ..format.lines import VcfValidationError
+
+        raise VcfValidationError(f"malformed compressed line at offset {int(line_off[i])}")
+    oracle_line = status != 0
+    esc_count = np.where(oracle_line, 0, esc_count).astype(np.int32)
+    esc_base = np.zeros(L, np.int64)
+    if L > 1:
+        np.cumsum(esc_count[:-1], out=esc_base[1:], dtype=np.int64)
+    esc_sample, esc_off, esc_len = native.collect_escapes(
+        raw_np, line_off, line_len, req_len, esc_count, esc_base, S
+    )
+    return NativeParsedVcfc(
+        header, raw, line_off, line_len, req_len, packed, nflags, oracle_line,
         esc_count, esc_base, esc_sample, esc_off, esc_len,
     )
 

@@ -37,6 +37,8 @@ _i64 = ctypes.c_int64
 _SIGNATURES = {  # entry point -> (restype, argtypes)
     "vcfc_scan": (_i64, [_u8p, _i64, _i64, _i64, _i64p, _i32p, _i32p]),
     "vcfc_unpack": (None, [_u8p, _i64p, _i32p, _i32p, _i64, _i64, _i64, _u8p, _i32p, _u8p]),
+    "vcfc_scan_packed": (
+        None, [_u8p, _i64p, _i32p, _i32p, _i64, _i64, _i64, _u8p, _i32p, _i32p, _u8p]),
     "vcfc_collect_escapes": (
         None, [_u8p, _i64p, _i32p, _i32p, _i32p, _i64p, _i64, _i64, _i32p, _i64p, _i32p]),
     "vcfc_measure": (None, [_u8p, _i64p, _i64p, _u8p, _u8p, _i64, _i64, _i64, _i64p]),
@@ -137,6 +139,25 @@ def unpack(raw, line_off, line_len, req_len, S: int, width: int):
         _ptr(flagpos, _u8p), _ptr(esc_count, _i32p), _ptr(status, _u8p),
     )
     return flagpos, esc_count, status
+
+
+def scan_packed(raw, line_off, line_len, req_len, S: int, M: int):
+    """File sample bytes -> PACKED flag bytes (L, M) + counts + escape
+    counts + status — the device-unpack route's host side (the positional
+    expansion happens on device, ops/rle.py::unpack_packed_flags)."""
+    lib = _load()
+    L = len(line_off)
+    packed = np.zeros((L, M), np.uint8)
+    nflags = np.zeros(L, np.int32)
+    esc_count = np.zeros(L, np.int32)
+    status = np.zeros(L, np.uint8)
+    lib.vcfc_scan_packed(
+        _ptr(raw, _u8p), _ptr(line_off, _i64p), _ptr(line_len, _i32p),
+        _ptr(req_len, _i32p), L, S, M,
+        _ptr(packed, _u8p), _ptr(nflags, _i32p), _ptr(esc_count, _i32p),
+        _ptr(status, _u8p),
+    )
+    return packed, nflags, esc_count, status
 
 
 def collect_escapes(raw, line_off, line_len, req_len, esc_count, esc_base, S: int):

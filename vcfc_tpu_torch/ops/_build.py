@@ -1,9 +1,10 @@
 """Build the CUDA sources of ``vcfc_tpu_torch/csrc`` into shared libraries.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
-compiled by ``nvcc`` for Hopper (``sm_90a``) into
-``vcfc_tpu_torch/_build/<name>-<source hash>.so`` and loaded with ctypes;
-a later call with the same source loads the library already built.
+Each ``csrc/<name>.cu`` has a plain C interface and may include the
+shared headers ``csrc/*.cuh``.  At first use it is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``vcfc_tpu_torch/_build/<name>-<hash>.so``,
+the hash taken over the source and the headers, and loaded with ctypes; a
+later call with the same sources loads the library already built.
 """
 
 from __future__ import annotations
@@ -42,7 +43,10 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256()
+    for path in [src, *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest = digest.hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
     if lib.exists():
         return lib

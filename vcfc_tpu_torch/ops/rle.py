@@ -11,7 +11,9 @@ they are the spec that the CUDA kernels of ``cuda_rle`` are held to.
 
 The public ``rle_encode`` / ``rle_decode`` / ``text_rle_encode`` /
 ``text_rle_decode`` dispatch on the tensor's device: a CPU tensor gets the
-plain version, a CUDA tensor the kernel.
+plain version, a CUDA tensor the kernel.  ``unpack_packed_flags`` (the
+packed file flags to the positional plane) is the same PyTorch ops on
+either device; ``unpack_rle_decode`` follows it with ``rle_decode``.
 
 Genotype codes: 0="0|0", 1="0|1", 2="1|0", 3="1|1", 4=escape.
 """
@@ -174,6 +176,39 @@ def text_rle_decode(flagpos: torch.Tensor, n_samples: int):
     """(L, S_pad) uint8 flags -> (text int32 words, codes uint8, decoded
     int32): the plain version on a CPU tensor, K4 on a CUDA tensor."""
     return _dispatch(flagpos, text_rle_decode_plain, cuda_text_decode)(flagpos, n_samples)
+
+
+def unpack_packed_flags(flags: torch.Tensor, nflags: torch.Tensor, out_width: int):
+    """Packed (left-aligned) flag bytes -> the positional plane: the port
+    of ``vcfc_tpu.ops.rle.unpack_packed_flags``.
+
+    ``flags`` is (L, M) uint8, 0-padded; ``nflags`` (L,) int32 holds each
+    line's flag count.  Flag slot j lands at end_j = cumsum(run_len)_j - 1,
+    the last sample of its segment.  Slots past the count, with a zero run
+    length (0x80, 0xA0, ...) or ending at or past ``out_width`` are dropped:
+    they are scattered to one sink cell after the plane, which is then cut
+    off.  Returns (L, out_width) uint8."""
+    L, M = flags.shape
+    fi = flags.to(torch.int32)
+    valid = torch.arange(M, dtype=torch.int32, device=flags.device)[None, :] < nflags[:, None]
+    run_len = torch.where((fi & 0xE0) == 0xE0, 1, fi & 0x1F)
+    run_len = torch.where((fi & 0x80) == 0, fi & 0x7F, run_len)
+    run_len = torch.where(valid, run_len, 0)
+    ends = torch.cumsum(run_len, dim=1, dtype=torch.int32) - 1
+    ok = valid & (run_len > 0) & (ends < out_width)
+    rows = torch.arange(L, dtype=torch.int64, device=flags.device)[:, None] * out_width
+    sink = L * out_width
+    target = torch.where(ok, rows + ends.to(torch.int64), sink)
+    out = torch.zeros(sink + 1, dtype=torch.uint8, device=flags.device)
+    out.scatter_(0, target.reshape(-1), flags.reshape(-1))
+    return out[:sink].view(L, out_width)
+
+
+def unpack_rle_decode(flags: torch.Tensor, nflags: torch.Tensor, n_samples: int, out_width: int):
+    """Decode from packed file flag bytes: ``unpack_packed_flags``, then
+    ``rle_decode`` (K2 on a CUDA tensor).  Returns (codes (L, out_width)
+    uint8, decoded (L,) int32)."""
+    return rle_decode(unpack_packed_flags(flags, nflags, out_width), n_samples)
 
 
 def render_text(codes) -> np.ndarray:
