@@ -8,12 +8,13 @@ builds the CUDA kernels and the native host library from this checkout,
 then runs, in order, failing (non-zero exit) at the first phase that fails:
 
   1. the card's name and power limit; nvcc builds of csrc/rle_kernels.cu
-     (K1-K4) and csrc/probe_kernels.cu (the ablation probes C1-C4), both
+     (K1-K4) and csrc/probe_kernels.cu (the ablation probes C1-C5), both
      started together; make of native/libvcfc_host.so; the 1000 Genomes
      phase 3 sized cohort
   2. each kernel against its plain PyTorch version on the card, exact on
-     every output element, at the engine's batch shapes and on edge cases;
-     C1 and C4 at every cells a thread, and C4 against K1's outputs too
+     every output element, at the engine's batch shapes, on edge cases and
+     on the group and round edges of eval.edge_cases; C1 and C4 at every
+     cells a thread, C4 against K1's outputs and C5 against K2's too
   3. the routes of the main path on the cohort: the parse route (K1/K2),
      the VCFC_PARSE=device text route (K3/K4) and the VCFC_UNPACK=device
      decompress route (packed flags unpacked on the card, then K2); each
@@ -22,14 +23,17 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      trip of each route in a temporary directory
   4. each route's kernels' launch counts from its own phase 3 run above zero
   5. each kernel's time and its plain version's (CUDA events, median,
-     inputs read from HBM) beside its bound, and the end-to-end seconds of
-     the routes
+     inputs read from HBM) beside its bound (the bytes it must move at the
+     card's memory rate) and its plain-op line (its plain version's
+     elementwise steps at the card's INT32 rate), K1 and K2 in turns with
+     their earlier tile designs C4 (16 cells) and C5 and beside a device
+     copy of their input plane; and the end-to-end seconds of the routes
   6. where the time goes, per route: host-clock seconds per layer from
      phase 3's calls, and device busy time from torch.profiler events on
      the CUDA device only
   7. the K1/K2 ablation (vcfc_tpu_torch.eval.kernel_ceiling) at 8192 x
-     2560, its probes' launch counts from that run above zero, and its
-     table
+     2560, K1 and K2 again in turns with C4 and C5, its probes' launch
+     counts from that run above zero, and its table
   8. one "kernels" JSON line (launches, mismatches, times, bounds), then a
      last line {"ok": true, "device": {...}}
 """
@@ -53,8 +57,9 @@ import torch
 from vcfc_tpu_torch import engine
 from vcfc_tpu_torch.eval import kernel_ceiling
 from vcfc_tpu_torch.eval.bench_codes import gt_codes
+from vcfc_tpu_torch.eval.edge_cases import encode_edge_cases, flag_edge_cases
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
-from vcfc_tpu_torch.eval.timing import LAUNCHES_PER_TRIAL, TRIALS, median_ms, rotated
+from vcfc_tpu_torch.eval.timing import LAUNCHES_PER_TRIAL, TRIALS, in_turns, median_ms, rotated
 from vcfc_tpu_torch.format.vcf import parse_metadata_headers
 from vcfc_tpu_torch.host import fast, native
 from vcfc_tpu_torch.host.parse import parse_vcf_bytes
@@ -66,10 +71,12 @@ from vcfc_tpu_torch.ops.cuda_rle import (
     cuda_probe_roundtrip,
     cuda_probe_scan_only,
     cuda_probe_scan_replaced,
+    cuda_probe_tile_decode,
     cuda_rle_decode,
     cuda_rle_encode,
     cuda_text_decode,
     cuda_text_encode,
+    kernel_info,
 )
 from vcfc_tpu_torch.ops.probe import roundtrip_plain, scan_only_plain, scan_replaced_plain
 from vcfc_tpu_torch.ops.rle import (
@@ -107,32 +114,55 @@ PROBES = {
                         "scripts/kernel_ceiling.py:130", "round trip", "round trip"),
     "probe_blocked_encode": (cuda_probe_blocked_encode, rle_encode_plain,
                              "scripts/swar_probe.py:119", "blocked encode", "K1 encode"),
+    "probe_tile_decode": (cuda_probe_tile_decode, rle_decode_plain,
+                          "vcfc_tpu/ops/pallas_rle.py:234", "tile decode", "K2 decode"),
 }
+# K1 and K2 beside their earlier tile designs, timed in turns: kernel ->
+# (probe, its cells= or None)
+EARLIER_DESIGN = {"rle_encode": ("probe_blocked_encode", 16),
+                  "rle_decode": ("probe_tile_decode", None)}
 CELLS_PROBES = ("probe_scan_only", "probe_blocked_encode")
-# Bounds: bytes each kernel must move per cell (each input read once, each
-# output written once) and per row (the int32 per-row outputs) over the
-# H100's published 3.35 TB/s; and the integer operations per cell of its
-# plain version (one per elementwise step over the plane) over the card's
-# INT32 rate: 64 INT32 lanes per SM per clock (NVIDIA H100 Tensor Core GPU
-# Architecture whitepaper, Hopper SM) x the card's SMs x its maximum SM
-# clock from nvidia-smi.
+# The bound, the least time the card could take: the bytes each kernel must
+# move per cell (each input read once, each output written once) and per
+# row (the int32 per-row outputs) over the H100's published 3.35 TB/s.
+# Every kernel is bound by bytes, so each row of the "kernels" line says
+# bound_by "bytes".
 HBM_BYTES_PER_S = 3.35e12
+BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
+    "rle_encode": (2, 4),
+    "rle_decode": (2, 4),
+    "text_encode": (5, 8),
+    "text_decode": (6, 4),
+    "probe_scan_only": (2, 4),
+    "probe_scan_replaced": (2, 4),
+    "probe_roundtrip": (2, 4),
+    "probe_blocked_encode": (2, 4),
+    "probe_tile_decode": (2, 4),
+}
+# Printed beside the bound by phases 5 and 7, not on the "kernels" line:
+# the plain-op line, the integer operations per cell of a kernel's plain
+# version (one per elementwise step over the plane) over the card's INT32
+# rate, 64 INT32 lanes per SM per clock (NVIDIA H100 Tensor Core GPU
+# Architecture whitepaper, Hopper SM) x the card's SMs x its maximum SM
+# clock from nvidia-smi.  It counts one way of writing the function, not
+# the work the function needs (K1 and K2 do fewer), so it bounds nothing.
+# The probes' counts come from K1's and K2's: C1 keeps K1's plain steps up
+# to the scan (the int32 cast, the shifted copy, the five of new_run, the
+# where, the cummax) and adds the & 0x7F and the cast, 11; C2 swaps the
+# where + cummax of the scan for an & and a where, 35 like K1; C3's plain
+# version is K1's then K2's, 35 + 25; C4's is K1's, C5's K2's.
 INT32_OPS_PER_SM_PER_CLOCK = 64
 CLOCK_QUERY = ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]
-# The probes' operations are counted from K1's and K2's: C1 keeps K1's
-# plain steps up to the scan (the int32 cast, the shifted copy, the five of
-# new_run, the where, the cummax) and adds the & 0x7F and the cast, 11; C2
-# swaps the where + cummax of the scan for an & and a where, 35 like K1;
-# C3's plain version is K1's then K2's, 35 + 25; C4's is K1's.
-BOUND_TERMS = {  # name -> (bytes per cell, bytes per row, operations per cell)
-    "rle_encode": (2, 4, 35),
-    "rle_decode": (2, 4, 25),
-    "text_encode": (5, 8, 59),
-    "text_decode": (6, 4, 37),
-    "probe_scan_only": (2, 4, 11),
-    "probe_scan_replaced": (2, 4, 35),
-    "probe_roundtrip": (2, 4, 60),
-    "probe_blocked_encode": (2, 4, 35),
+PLAIN_OPS = {  # name -> the plain version's operations per cell
+    "rle_encode": 35,
+    "rle_decode": 25,
+    "text_encode": 59,
+    "text_decode": 37,
+    "probe_scan_only": 11,
+    "probe_scan_replaced": 35,
+    "probe_roundtrip": 60,
+    "probe_blocked_encode": 35,
+    "probe_tile_decode": 25,
 }
 VALID_WORDS = [b"0|0\t", b"0|1\t", b"1|0\t", b"1|1\t"]
 ESCAPE_WORDS = [b"2|0\t", b"./.\t", b"0/1\t", b"9|9\t", b"1|2\t"]
@@ -324,8 +354,8 @@ def phase2_kernels(rng, vcf):
             print(f"phase 2: {name} {case}: {mism} mismatching elements")
         return got
 
-    cases = encode_cases(rng)
-    flag_cases = malformed_flag_cases(rng)
+    cases = encode_cases(rng) + encode_edge_cases()
+    flag_cases = malformed_flag_cases(rng) + flag_edge_cases()
     decode_inputs = [(case, check("rle_encode", case, torch.from_numpy(codes).cuda(), n)[0], n)
                      for case, codes, n in cases]
     text_inputs = [(case, check("text_encode", case, torch.from_numpy(words).cuda(), n)[0], n)
@@ -335,7 +365,9 @@ def phase2_kernels(rng, vcf):
         decode_inputs.append((case, torch.from_numpy(flags).cuda(), n))
         text_inputs.append((case, torch.from_numpy(flags).cuda(), n))
     for case, flags, n in decode_inputs:
-        check("rle_decode", case, flags, n)
+        k2 = check("rle_decode", case, flags, n)
+        check("probe_tile_decode", case, flags, n)
+        check("probe_tile_decode", f"{case} against K2", flags, n, want=k2)
     for case, flags, n in text_inputs:
         check("text_decode", case, flags, n)
     del decode_inputs, text_inputs
@@ -504,21 +536,25 @@ def int32_ops_per_s() -> float:
     return INT32_OPS_PER_SM_PER_CLOCK * sms * float(mhz.split()[0]) * 1e6
 
 
-def bound(name, L, W, int_ops_per_s):
-    """(bound ms, what bounds it) for one launch on an (L, W) plane."""
-    per_cell, per_row, ops = BOUND_TERMS[name]
-    bytes_ms = (per_cell * L * W + per_row * L) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops * L * W / int_ops_per_s * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+def bound(name, L, W):
+    """The bound in ms of one launch on an (L, W) plane: its bytes over the
+    card's memory rate."""
+    per_cell, per_row = BOUND_BYTES[name]
+    return (per_cell * L * W + per_row * L) / HBM_BYTES_PER_S * 1e3
 
 
-def _kernel_row(name, source, replaces, launches, stats, shape, ms, plain_ms, int_rate):
+def plain_ops_ms(name, L, W, int_ops_per_s):
+    """The plain-op line in ms of one launch on an (L, W) plane: its plain
+    version's elementwise steps over the card's INT32 rate."""
+    return PLAIN_OPS[name] * L * W / int_ops_per_s * 1e3
+
+
+def _kernel_row(name, source, replaces, launches, stats, shape, ms, plain_ms):
     """One entry of the "kernels" line."""
-    bound_ms, bound_by = bound(name, *shape, int_rate)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": stats[name]["max_abs_err"],
             "mismatches": stats[name]["mismatches"], "shape": list(shape), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "bound_ms": bound(name, *shape), "bound_by": "bytes",
             "library_ms": None}
 
 
@@ -532,19 +568,41 @@ def phase5_times(vcf, stats, launches, int_rate):
     print(f"phase 5: INT32 rate {int_rate:.6e} ops/s "
           f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs), "
           f"HBM {HBM_BYTES_PER_S:.3e} B/s")
+    for name in EARLIER_DESIGN:
+        info = kernel_info(name)
+        print(f"phase 5: {name} as built: {info['registers']} registers and "
+              f"{info['local_bytes']} local bytes a thread, {info['blocks_per_sm']} resident "
+              "blocks of 128 threads per SM")
     rows = []
     for name, (kernel, plain, replaces) in KERNELS.items():
         x = inputs[name]
         xs = rotated(x)
         warm_ms = median_ms(kernel, [x], SAMPLES)
-        ms = median_ms(kernel, xs, SAMPLES)
+        if name in EARLIER_DESIGN:
+            probe, cells = EARLIER_DESIGN[name]
+            earlier = PROBES[probe][0]
+            if cells is not None:
+                earlier = functools.partial(earlier, cells=cells)
+            ms, earlier_ms = in_turns(kernel, earlier, xs, xs, SAMPLES)
+        else:
+            ms = median_ms(kernel, xs, SAMPLES)
         plain_ms = median_ms(plain, xs, SAMPLES)
-        row = _kernel_row(name, SOURCE, replaces, launches[name], stats, (L, W), ms, plain_ms,
-                          int_rate)
+        row = _kernel_row(name, SOURCE, replaces, launches[name], stats, (L, W), ms, plain_ms)
+        ops_ms = plain_ops_ms(name, L, W, int_rate)
         print(f"phase 5: {name} {L}x{W}: kernel {ms:.5f} ms (one input, L2-warm: "
               f"{warm_ms:.5f} ms), plain {plain_ms:.5f} ms, bound {row['bound_ms']:.5f} ms by "
-              f"{row['bound_by']} (median of {TRIALS} trials of {LAUNCHES_PER_TRIAL} launches, "
-              f"cycling through {len(xs)} copies of the input)")
+              f"bytes ({row['bound_ms'] / ms:.1%} of the kernel's time), plain-op line "
+              f"{ops_ms:.5f} ms (median of {TRIALS} trials of "
+              f"{LAUNCHES_PER_TRIAL} launches, cycling through {len(xs)} copies of the input)")
+        if name in EARLIER_DESIGN:
+            copy = torch.empty_like(x)
+            copy_ms = median_ms(lambda src, _n: copy.copy_(src), xs, SAMPLES)
+            shown = probe + ("" if cells is None else f" at {cells} cells")
+            print(f"phase 5: {name} {L}x{W} in turns with its earlier design {shown}: "
+                  f"{ms:.5f} ms against {earlier_ms:.5f} ms ({ms / earlier_ms:.1%}); bound "
+                  f"{row['bound_ms']:.5f} ms, plain-op lines {ops_ms:.5f} and "
+                  f"{plain_ops_ms(probe, L, W, int_rate):.5f} ms; a device copy of its input "
+                  f"plane (Tensor.copy_, the same bytes in and out) {copy_ms:.5f} ms")
         del xs
         rows.append(row)
     return rows
@@ -629,6 +687,15 @@ def phase7_ablation(stats, int_rate):
     if not all(counts.values()):
         raise SystemExit(f"phase 7: a probe did not launch in the ablation: {counts}")
     times, plain = result["times_ms"], result["plain_ms"]
+    L, W = result["shape"]
+    for name, (k, earlier) in {"rle_encode": ("K1 encode", "blocked encode 16"),
+                               "rle_decode": ("K2 decode", "tile decode")}.items():
+        probe = EARLIER_DESIGN[name][0]
+        print(f"phase 7: {name} {L}x{W} in turns with {earlier}: {times[k]:.5f} ms against "
+              f"{times[earlier]:.5f} ms ({times[k] / times[earlier]:.1%}); bound "
+              f"{bound(name, L, W):.5f} ms by bytes, plain-op lines "
+              f"{plain_ops_ms(name, L, W, int_rate):.5f} and "
+              f"{plain_ops_ms(probe, L, W, int_rate):.5f} ms")
     rows = []
     for name, (_kernel, _plain, replaces, label, plain_label) in PROBES.items():
         if name in CELLS_PROBES:
@@ -641,7 +708,7 @@ def phase7_ablation(stats, int_rate):
         else:
             ms = times[label]
         rows.append(_kernel_row(name, PROBE_SOURCE, replaces, counts[name], stats,
-                                result["shape"], ms, plain[plain_label], int_rate))
+                                result["shape"], ms, plain[plain_label]))
         if name in CELLS_PROBES:
             rows[-1]["cells"] = best
     return rows

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from vcfc_tpu_torch import engine
+from vcfc_tpu_torch.eval.edge_cases import encode_edge_cases, flag_edge_cases
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch.ops import _build, cuda_rle, probe
 from vcfc_tpu_torch.ops.rle import (
@@ -26,6 +27,8 @@ from vcfc_tpu_torch.ops.rle import (
 pytestmark = pytest.mark.cuda
 
 P = [0.81, 0.072, 0.072, 0.0264, 0.0196]
+EDGE = encode_edge_cases()
+FLAG_EDGE = flag_edge_cases()
 
 
 @pytest.fixture
@@ -74,6 +77,30 @@ def test_decode_of_malformed_planes_matches_plain(cuda_device, W, S):
     flags[:4] = 0
     x = torch.from_numpy(flags).to(cuda_device)
     _assert_equal(cuda_rle.cuda_rle_decode(x, S), rle_decode_plain(x, S))
+    _assert_equal(cuda_rle.cuda_probe_tile_decode(x, S), rle_decode_plain(x, S))
+
+
+@pytest.mark.parametrize("case", range(len(EDGE)), ids=[name for name, _, _ in EDGE])
+def test_edge_cases_match_plain(cuda_device, case):
+    """K1, then K2 and C5 on its flags, on the runs, wraps and escapes of
+    eval.edge_cases."""
+    _name, codes, S = EDGE[case]
+    x = torch.from_numpy(codes).to(cuda_device)
+    flags, nseg = cuda_rle.cuda_rle_encode(x, S)
+    _assert_equal((flags, nseg), rle_encode_plain(x, S))
+    _assert_equal(cuda_rle.cuda_probe_blocked_encode(x, S, 16), (flags, nseg))
+    want = rle_decode_plain(flags, S)
+    _assert_equal(cuda_rle.cuda_rle_decode(flags, S), want)
+    _assert_equal(cuda_rle.cuda_probe_tile_decode(flags, S), want)
+
+
+@pytest.mark.parametrize("case", range(len(FLAG_EDGE)), ids=[name for name, _, _ in FLAG_EDGE])
+def test_flag_edge_cases_match_plain(cuda_device, case):
+    _name, flags, S = FLAG_EDGE[case]
+    x = torch.from_numpy(flags).to(cuda_device)
+    want = rle_decode_plain(x, S)
+    _assert_equal(cuda_rle.cuda_rle_decode(x, S), want)
+    _assert_equal(cuda_rle.cuda_probe_tile_decode(x, S), want)
 
 
 @pytest.mark.parametrize(
@@ -127,7 +154,8 @@ def test_engine_on_cuda_matches_cpu(cuda_device, monkeypatch, parse):
     ],
 )
 def test_probes_match_plain(cuda_device, L, W, S, p):
-    """C1 and C4 at every cells a thread, C2, C3; C4's outputs are K1's."""
+    """C1 and C4 at every cells a thread, C2, C3; C4's outputs are K1's,
+    C5's K2's."""
     rng = np.random.default_rng(W + S + 2)
     codes = rng.choice(5, size=(L, W), p=p).astype(np.uint8)
     x = torch.from_numpy(codes).to(cuda_device)
@@ -138,6 +166,7 @@ def test_probes_match_plain(cuda_device, L, W, S, p):
     _assert_equal(k1, rle_encode_plain(x, S))
     _assert_equal(cuda_rle.cuda_probe_scan_replaced(x, S), probe.scan_replaced_plain(x, S))
     _assert_equal(cuda_rle.cuda_probe_roundtrip(x, S), probe.roundtrip_plain(x, S))
+    _assert_equal(cuda_rle.cuda_probe_tile_decode(k1[0], S), cuda_rle.cuda_rle_decode(k1[0], S))
 
 
 def test_roundtrip_probe_takes_wide_rows_and_refuses_wider(cuda_device):

@@ -25,9 +25,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 import bench
 import vcfc_tpu.ops.pallas_rle as P
-from vcfc_tpu_torch.eval import bench_codes, kernel_ceiling
+from vcfc_tpu_torch.eval import bench_codes, geometry_sweep, kernel_ceiling
 from vcfc_tpu_torch.ops import cuda_rle, probe
-from vcfc_tpu_torch.ops.rle import rle_encode_plain
+from vcfc_tpu_torch.ops.rle import rle_decode_plain, rle_encode_plain
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 SHAPES = [(256, 256), (256, 384), (256, 512)]
@@ -155,6 +155,8 @@ def test_cpu_tensors_take_the_plain_probes(cells):
     _assert_equal(probe.probe_blocked_encode(codes, 250, cells), rle_encode_plain(codes, 250))
     _assert_equal(probe.probe_scan_replaced(codes, 250), probe.scan_replaced_plain(codes, 250))
     _assert_equal(probe.probe_roundtrip(codes, 250), probe.roundtrip_plain(codes, 250))
+    flags = rle_encode_plain(codes, 250)[0]
+    _assert_equal(probe.probe_tile_decode(flags, 250), rle_decode_plain(flags, 250))
     assert cuda_rle.LAUNCHES == before
 
 
@@ -167,7 +169,8 @@ def test_probes_reject_cells_no_kernel_has(fn):
 @pytest.mark.parametrize(
     "wrapper",
     [cuda_rle.cuda_probe_scan_only, cuda_rle.cuda_probe_scan_replaced,
-     cuda_rle.cuda_probe_roundtrip, cuda_rle.cuda_probe_blocked_encode],
+     cuda_rle.cuda_probe_roundtrip, cuda_rle.cuda_probe_blocked_encode,
+     cuda_rle.cuda_probe_tile_decode],
 )
 @pytest.mark.parametrize(
     "plane,error",
@@ -188,9 +191,16 @@ def test_kernel_ceiling_runs_on_the_cpu(capsys):
     result = kernel_ceiling.run("cpu", 64, 300, seed=2)
     assert result["times_ms"] is None and set(result["checks"].values()) == {0}
     assert {f"blocked encode {c} vs K1" for c in cuda_rle.PROBE_CELLS} <= set(result["checks"])
+    assert {"tile decode", "tile decode vs K2"} <= set(result["checks"])
 
 
 def test_kernel_ceiling_without_cuda_fails(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kernel_ceiling.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_geometry_sweep_without_cuda_fails(capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert geometry_sweep.main() == 1
     assert "no CUDA device" in capsys.readouterr().err

@@ -1,6 +1,9 @@
-// Ablation probes of the Hopper RLE kernels K1/K2 (rle_kernels.cu): each
-// keeps part of K1's or K2's work and cuts the rest, so that timing them
-// beside K1 and K2 splits where the kernels' time goes.
+// Ablation probes of the Hopper RLE kernels K1/K2 (rle_kernels.cu).  C4 at
+// 16 cells and C5 are the tile design that K1 and K2 had before they
+// became warp-per-row kernels; C1-C3 each keep part of that design's work
+// and cut the rest, so that timing them beside C4 and C5 splits where its
+// time went, and timing K1 and K2 beside C4 and C5 measures the rewrite.
+// "K1's" and "K2's" below name the function, which both designs compute.
 //
 // C1 scan_only_kernel<V> replaces scripts/kernel_ceiling.py::enc_scan_only
 // and scripts/swar_probe.py's scan-only kern (scan_only_with): K1's run
@@ -16,15 +19,21 @@
 // memory; it writes only the decoded codes and the decoded count.
 // C4 rle_encode_kernel<V> (rle_tile.cuh) replaces swar_probe.py's
 // full-encode kern (full_encode_with over scan_blocked /
-// scan_blocked_strided): K1 itself at V = 1, 2, 4, 8 or 16 cells a
-// thread.  The TPU probe's "block 2/4" is 2 or 4 cells per lane; K1 runs
-// 16 a thread.  Its outputs are K1's at every V.
+// scan_blocked_strided): the tile design of K1 at V = 1, 2, 4, 8 or 16
+// cells a thread.  The TPU probe's "block 2/4" is 2 or 4 cells per lane.
+// Its outputs are K1's at every V; at V = 16 it is the tile design K1 had
+// before K1 became the warp-per-row kernel of rle_kernels.cu.
+// C5 tile_decode_kernel: the tile design K2 had before the same change,
+// kept as it was (one CTA per row, decode_tile's suffix min over thread
+// keys, two barriers a tile), so that K2 can be timed against it; it
+// replaces what K2 replaces, vcfc_tpu/ops/pallas_rle.py::_decode_kernel,
+// and its outputs are K2's.
 //
 // What bounds them: like K1 and K2, a byte in and a byte out per cell and
 // a few dozen integer operations per cell; the probes differ from K1/K2
 // only in the operations, which is what they measure.  Every probe walks a
 // row in tiles with encode_tile's / decode_tile's carries, so every run
-// boundary, at tile and thread edges too, is K1's.  The plain PyTorch
+// boundary, at tile and thread edges too, is K1's, and every fill K2's.  The plain PyTorch
 // versions in vcfc_tpu_torch/ops/probe.py are the spec.
 //
 // Plain C interface (loaded with ctypes): every entry point launches on
@@ -157,6 +166,28 @@ roundtrip_kernel(const uint8_t* __restrict__ codes, uint8_t* __restrict__ out,
   if (threadIdx.x == 0) decoded[blockIdx.x] = total;
 }
 
+// C5: (rows, w) uint8 flags -> codes, decoded, in tiles.
+__global__ void __launch_bounds__(MAX_THREADS)
+tile_decode_kernel(const uint8_t* __restrict__ flags, uint8_t* __restrict__ codes,
+                   int32_t* __restrict__ decoded, int w, int n, bool vec_ok) {
+  __shared__ int s_scan[MAX_WARPS];
+  __shared__ int s_sum[MAX_WARPS];
+  const uint8_t* in = flags + int64_t(blockIdx.x) * w;
+  uint8_t* out = codes + int64_t(blockIdx.x) * w;
+  const int tile = blockDim.x * VEC;
+  int carry = 0xFF, sum = 0;
+  for (int t0 = (w - 1) / tile * tile; t0 >= 0; t0 -= tile) {
+    const int p0 = t0 + threadIdx.x * VEC;
+    const bool active = p0 < w;
+    uint8_t f[VEC], c[VEC];
+    if (active) load_cells<VEC>(in, p0, w, vec_ok, f);
+    decode_tile(f, p0, n, active, carry, sum, s_scan, c);
+    if (active) store_cells<VEC>(out, p0, w, vec_ok, c);
+  }
+  const int total = block_sum(sum, s_sum);
+  if (threadIdx.x == 0) decoded[blockIdx.x] = total;
+}
+
 // The widest row roundtrip_kernel takes: the block's opt-in shared memory
 // less its static shared memory; -1 if the device cannot be queried.
 int roundtrip_max_width() {
@@ -258,6 +289,17 @@ int vcfc_cuda_probe_blocked_encode(const void* codes, void* flags, void* nseg, l
     case 16: launch_blocked_encode<16>(in, out, counts, rows, width, n_samples, s); break;
     default: return int(cudaErrorInvalidValue);
   }
+  return int(cudaGetLastError());
+}
+
+// flags, codes: (rows, width) uint8, row-major; decoded: (rows,) int32.
+int vcfc_cuda_probe_tile_decode(const void* flags, void* codes, void* decoded, long long rows,
+                                int width, int n_samples, void* stream) {
+  if (bad_shape(rows, width)) return int(cudaErrorInvalidValue);
+  const auto* in = static_cast<const uint8_t*>(flags);
+  auto* out = static_cast<uint8_t*>(codes);
+  tile_decode_kernel<<<unsigned(rows), block_threads(width), 0, cudaStream_t(stream)>>>(
+      in, out, static_cast<int32_t*>(decoded), width, n_samples, vec_aligned(width, in, out));
   return int(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
-// Tile building blocks shared by the Hopper RLE kernels (rle_kernels.cu)
-// and their ablation probes (probe_kernels.cu): cell loads and stores, the
+// Tile building blocks shared by the text kernels K3/K4 (rle_kernels.cu)
+// and the ablation probes (probe_kernels.cu): cell loads and stores, the
 // flag-byte tables, the encode scan of one tile (encode_tile), the decode
-// fill of one tile (decode_tile) and K1's kernel itself, templated on the
-// number of cells a thread owns.
+// fill of one tile (decode_tile) and the tile encode kernel, templated on
+// the number of cells a thread owns (probe C4; at 16 cells it is the
+// design K1 had before its warp-per-row kernel).
 //
 // One CTA walks one row in tiles of blockDim x V cells; each thread owns V
 // consecutive cells.  A row scan is a per-thread serial scan, a
@@ -19,7 +20,7 @@
 
 namespace {
 
-constexpr int VEC = 16;  // K1-K4's cells per thread per tile: one uint4 of bytes
+constexpr int VEC = 16;  // K3/K4/C2/C3/C5 cells per thread per tile: one uint4 of bytes
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -164,7 +165,7 @@ __device__ __forceinline__ int scan_tile(const uint8_t c[V], int prev, int p0, i
   return run_start;
 }
 
-// One tile of the encode scan (K1, K3).  flags[i] = base(c) | (rem + 1) at
+// One tile of the encode scan (K3, C3, C4).  flags[i] = base(c) | (rem + 1) at
 // each segment's last cell i < n and 0 elsewhere, where d = i - run_start,
 // rem = d % 127 for code 0 and d % 31 otherwise, and a segment starts
 // where rem == 0.  count gathers the segment starts below n.  A cell is a
@@ -202,7 +203,7 @@ __device__ __forceinline__ void encode_tile(const uint8_t c[V], int prev, int ne
   }
 }
 
-// One tile of the decode fill (K2, K4).  Each cell takes the next present
+// One tile of the decode fill (K4, C3, C5).  Each cell takes the next present
 // flag at or after it (0xFF past the row's last flag, like rle_decode's
 // sentinel, so such cells decode as an escape) and its code from that
 // flag's bits; sum gathers the run length of every flag below n.  The
@@ -255,8 +256,8 @@ __device__ __forceinline__ void decode_tile(const uint8_t f[VEC], int p0, int n,
   }
 }
 
-// K1 at V cells a thread: (rows, w) uint8 codes -> flags, nseg.  K1 is
-// V = VEC; the blocked-encode probe runs the other V.
+// The tile encode at V cells a thread: (rows, w) uint8 codes -> flags,
+// nseg, K1's outputs; the blocked-encode probe C4 runs every V.
 template <int V>
 __global__ void __launch_bounds__(MAX_THREADS)
 rle_encode_kernel(const uint8_t* __restrict__ codes, uint8_t* __restrict__ flags,

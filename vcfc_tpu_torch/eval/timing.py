@@ -45,3 +45,13 @@ def median_ms(fn, xs, n) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / LAUNCHES_PER_TRIAL)
     return statistics.median(times)
+
+
+def in_turns(fa, fb, xs_a, xs_b, n) -> tuple[float, float]:
+    """Median device times in ms of ``fa`` and ``fb``, timed in turns a, b,
+    b, a (each on its own inputs), each the mean of its two medians."""
+    a1 = median_ms(fa, xs_a, n)
+    b1 = median_ms(fb, xs_b, n)
+    b2 = median_ms(fb, xs_b, n)
+    a2 = median_ms(fa, xs_a, n)
+    return (a1 + a2) / 2, (b1 + b2) / 2

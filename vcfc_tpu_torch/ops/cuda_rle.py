@@ -6,10 +6,13 @@ launches K1 (which replaces ``_encode_kernel``), ``cuda_rle_decode`` K2
 (``_decode_kernel``), ``cuda_text_encode`` K3 (``_text_encode_kernel``)
 and ``cuda_text_decode`` K4 (``_text_decode_kernel``).  The probes replace
 the Pallas kernels of ``scripts/kernel_ceiling.py`` and
-``scripts/swar_probe.py``: ``cuda_probe_scan_only`` (C1, K1's scan alone),
-``cuda_probe_scan_replaced`` (C2, K1 without its scan),
-``cuda_probe_roundtrip`` (C3, K1 then K2 with the flags kept on chip) and
-``cuda_probe_blocked_encode`` (C4, K1 at 1 to 16 cells a thread).  Each
+``scripts/swar_probe.py`` and keep K1's and K2's earlier tile design
+measurable: ``cuda_probe_scan_only`` (C1, the tile encode's scan alone),
+``cuda_probe_scan_replaced`` (C2, the tile encode without its scan),
+``cuda_probe_roundtrip`` (C3, the tile encode then the tile decode with
+the flags kept on chip), ``cuda_probe_blocked_encode`` (C4, the tile
+encode at 1 to 16 cells a thread) and ``cuda_probe_tile_decode`` (C5, the
+tile decode).  Each
 takes CUDA tensors only, allocates its outputs with ``torch.empty``,
 launches on the current stream without synchronising, and raises when the
 launch is refused.
@@ -30,7 +33,7 @@ from . import _build
 LAUNCHES = {
     "rle_encode": 0, "rle_decode": 0, "text_encode": 0, "text_decode": 0,
     "probe_scan_only": 0, "probe_scan_replaced": 0, "probe_roundtrip": 0,
-    "probe_blocked_encode": 0,
+    "probe_blocked_encode": 0, "probe_tile_decode": 0,
 }
 PROBE_CELLS = (1, 2, 4, 8, 16)  # the cells a thread owns in C1 and C4
 
@@ -46,7 +49,10 @@ _KERNELS = {
     "probe_scan_replaced": ("probe_kernels", (torch.uint8,), 1, False),
     "probe_roundtrip": ("probe_kernels", (torch.uint8,), 1, False),
     "probe_blocked_encode": ("probe_kernels", (torch.uint8,), 1, True),
+    "probe_tile_decode": ("probe_kernels", (torch.uint8,), 1, False),
 }
+# vcfc_cuda_rle_kernel_info's kernel argument
+_INFO_KERNELS = {"rle_encode": 0, "rle_decode": 1}
 
 
 @functools.cache
@@ -65,6 +71,9 @@ def _lib(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.vcfc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vcfc_cuda_error_string.restype = ctypes.c_char_p
+    if name == "rle_kernels":
+        lib.vcfc_cuda_rle_kernel_info.argtypes = [ctypes.c_int, *[ctypes.POINTER(ctypes.c_int)] * 3]
+        lib.vcfc_cuda_rle_kernel_info.restype = ctypes.c_int
     if name == "probe_kernels":
         lib.vcfc_cuda_probe_roundtrip_max_width.argtypes = []
         lib.vcfc_cuda_probe_roundtrip_max_width.restype = ctypes.c_int
@@ -116,6 +125,19 @@ def cuda_rle_decode(flagpos: torch.Tensor, n_samples: int):
     """K2: (L, S_pad) uint8 flags -> (codes (L, S_pad) uint8, decoded (L,) int32)."""
     _check_plane(flagpos, "rle_decode")
     return _launch("rle_decode", flagpos, n_samples)
+
+
+def kernel_info(kernel: str) -> dict:
+    """K1's or K2's ("rle_encode" or "rle_decode") registers a thread, local
+    memory bytes a thread and resident blocks per SM on the current
+    device."""
+    lib = _lib("rle_kernels")
+    values = [ctypes.c_int() for _ in range(3)]
+    err = lib.vcfc_cuda_rle_kernel_info(_INFO_KERNELS[kernel], *map(ctypes.byref, values))
+    if err:
+        msg = lib.vcfc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} attributes: cudaError {err} ({msg})")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm"), (v.value for v in values)))
 
 
 def cuda_text_encode(text: torch.Tensor, n_samples: int):
@@ -172,3 +194,10 @@ def cuda_probe_blocked_encode(codes: torch.Tensor, n_samples: int, cells: int = 
     (flagpos (L, S_pad) uint8, nseg (L,) int32), K1's outputs."""
     _check_plane(codes, "probe_blocked_encode")
     return _launch("probe_blocked_encode", codes, n_samples, _check_cells(cells))
+
+
+def cuda_probe_tile_decode(flagpos: torch.Tensor, n_samples: int):
+    """C5: K2's earlier tile design: (L, S_pad) uint8 flags -> (codes (L,
+    S_pad) uint8, decoded (L,) int32), K2's outputs."""
+    _check_plane(flagpos, "probe_tile_decode")
+    return _launch("probe_tile_decode", flagpos, n_samples)

@@ -4,8 +4,9 @@ The port of the Pallas probe kernels of ``scripts/kernel_ceiling.py``
 (P1: ``enc_scan_only``, ``enc_noscan``, ``rt_kernel``) and
 ``scripts/swar_probe.py`` (P2: the full encode over a blocked scan, and the
 scan alone).  Each keeps part of K1's or K2's work, so that timing it
-beside them splits where their time goes.  The plain versions here are the
-spec that the CUDA probes of ``cuda_rle`` (C1-C4) are held to; the public
+beside them splits where their time goes; C5, K2's earlier tile design,
+has K2's plain version.  The plain versions here are the spec that the
+CUDA probes of ``cuda_rle`` (C1-C5) are held to; the public
 ``probe_*`` functions dispatch on the tensor's device: a CPU tensor gets
 the plain version, a CUDA tensor the kernel.
 """
@@ -23,6 +24,7 @@ from .cuda_rle import (
     cuda_probe_roundtrip,
     cuda_probe_scan_only,
     cuda_probe_scan_replaced,
+    cuda_probe_tile_decode,
 )
 from .rle import _columns, _dispatch, _flag_base, rle_decode_plain, rle_encode_plain
 
@@ -88,3 +90,9 @@ def probe_blocked_encode(codes: torch.Tensor, n_samples: int, cells: int = 16):
     tensor ``rle_encode_plain``, whose outputs every ``cells`` gives."""
     kernel = functools.partial(cuda_probe_blocked_encode, cells=_check_cells(cells))
     return _dispatch(codes, rle_encode_plain, kernel)(codes, n_samples)
+
+
+def probe_tile_decode(flagpos: torch.Tensor, n_samples: int):
+    """C5 on a CUDA tensor (K2's earlier tile design); on a CPU tensor
+    ``rle_decode_plain``, whose outputs C5 gives."""
+    return _dispatch(flagpos, rle_decode_plain, cuda_probe_tile_decode)(flagpos, n_samples)
