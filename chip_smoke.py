@@ -8,13 +8,15 @@ builds the CUDA kernels and the native host library from this checkout,
 then runs, in order, failing (non-zero exit) at the first phase that fails:
 
   1. the card's name and power limit; nvcc builds of csrc/rle_kernels.cu
-     (K1-K4) and csrc/probe_kernels.cu (the ablation probes C1-C5), both
+     (K1-K4) and csrc/probe_kernels.cu (the ablation probes C1-C7), both
      started together; make of native/libvcfc_host.so; the 1000 Genomes
      phase 3 sized cohort
   2. each kernel against its plain PyTorch version on the card, exact on
      every output element, at the engine's batch shapes, on edge cases and
-     on the group and round edges of eval.edge_cases; C1 and C4 at every
-     cells a thread, C4 against K1's outputs and C5 against K2's too
+     on the group and round edges of eval.edge_cases (as text words for K3,
+     K4, C6 and C7, with bad separators on those edges); C1 and C4 at every
+     cells a thread, C4 against K1's outputs and C5 against K2's too, C6
+     and C7 on K3's and K4's cases
   3. the routes of the main path on the cohort: the parse route (K1/K2),
      the VCFC_PARSE=device text route (K3/K4) and the VCFC_UNPACK=device
      decompress route (packed flags unpacked on the card, then K2); each
@@ -25,9 +27,10 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
   5. each kernel's time and its plain version's (CUDA events, median,
      inputs read from HBM) beside its bound (the bytes it must move at the
      card's memory rate) and its plain-op line (its plain version's
-     elementwise steps at the card's INT32 rate), K1 and K2 in turns with
-     their earlier tile designs C4 (16 cells) and C5 and beside a device
-     copy of their input plane; and the end-to-end seconds of the routes
+     elementwise steps at the card's INT32 rate), K1-K4 in turns with
+     their earlier tile designs C4 (16 cells), C5, C6 and C7 and beside a
+     device copy of their input plane, with their registers, local memory
+     and resident blocks; and the end-to-end seconds of the routes
   6. where the time goes, per route: host-clock seconds per layer from
      phase 3's calls, and device busy time from torch.profiler events on
      the CUDA device only
@@ -57,7 +60,13 @@ import torch
 from vcfc_tpu_torch import engine
 from vcfc_tpu_torch.eval import kernel_ceiling
 from vcfc_tpu_torch.eval.bench_codes import gt_codes
-from vcfc_tpu_torch.eval.edge_cases import encode_edge_cases, flag_edge_cases
+from vcfc_tpu_torch.eval.edge_cases import (
+    ESCAPE_WORDS,
+    VALID_WORDS,
+    encode_edge_cases,
+    flag_edge_cases,
+    separator_edge_cases,
+)
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch.eval.timing import LAUNCHES_PER_TRIAL, TRIALS, in_turns, median_ms, rotated
 from vcfc_tpu_torch.format.vcf import parse_metadata_headers
@@ -72,6 +81,8 @@ from vcfc_tpu_torch.ops.cuda_rle import (
     cuda_probe_scan_only,
     cuda_probe_scan_replaced,
     cuda_probe_tile_decode,
+    cuda_probe_tile_text_decode,
+    cuda_probe_tile_text_encode,
     cuda_rle_decode,
     cuda_rle_encode,
     cuda_text_decode,
@@ -102,9 +113,9 @@ KERNELS = {  # name -> (kernel, plain version, the TPU kernel it replaces)
     "text_encode": (cuda_text_encode, text_rle_encode_plain, "vcfc_tpu/ops/pallas_rle.py:265"),
     "text_decode": (cuda_text_decode, text_rle_decode_plain, "vcfc_tpu/ops/pallas_rle.py:292"),
 }
-# The ablation probes: name -> (kernel, plain version, the TPU kernel it
-# replaces, its row in kernel_ceiling's times, its plain version's row);
-# C1 and C4 take cells= and report their best cells.
+# The ablation's probes: name -> (kernel, plain version, the TPU kernel it
+# replaces, its row in kernel_ceiling's times, its plain version's row); C1
+# and C4 take cells= and report their best cells.
 PROBES = {
     "probe_scan_only": (cuda_probe_scan_only, scan_only_plain,
                         "scripts/kernel_ceiling.py:69", "scan-only", "scan-only"),
@@ -117,10 +128,24 @@ PROBES = {
     "probe_tile_decode": (cuda_probe_tile_decode, rle_decode_plain,
                           "vcfc_tpu/ops/pallas_rle.py:234", "tile decode", "K2 decode"),
 }
-# K1 and K2 beside their earlier tile designs, timed in turns: kernel ->
+# C6 and C7, the tile designs of K3 and K4, outside the ablation: name ->
+# (kernel, plain version, the TPU kernel it replaces); phase 5 times them
+# beside K3 and K4 and gives them their rows of the "kernels" line.
+TEXT_PROBES = {
+    "probe_tile_text_encode": (cuda_probe_tile_text_encode, text_rle_encode_plain,
+                               "vcfc_tpu/ops/pallas_rle.py:265"),
+    "probe_tile_text_decode": (cuda_probe_tile_text_decode, text_rle_decode_plain,
+                               "vcfc_tpu/ops/pallas_rle.py:292"),
+}
+# every kernel held to its plain version: name -> (kernel, plain version,
+# the TPU kernel it replaces)
+CHECKED = {**KERNELS, **{name: probe[:3] for name, probe in PROBES.items()}, **TEXT_PROBES}
+# K1-K4 beside their earlier tile designs, timed in turns: kernel ->
 # (probe, its cells= or None)
 EARLIER_DESIGN = {"rle_encode": ("probe_blocked_encode", 16),
-                  "rle_decode": ("probe_tile_decode", None)}
+                  "rle_decode": ("probe_tile_decode", None),
+                  "text_encode": ("probe_tile_text_encode", None),
+                  "text_decode": ("probe_tile_text_decode", None)}
 CELLS_PROBES = ("probe_scan_only", "probe_blocked_encode")
 # The bound, the least time the card could take: the bytes each kernel must
 # move per cell (each input read once, each output written once) and per
@@ -138,6 +163,8 @@ BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
     "probe_roundtrip": (2, 4),
     "probe_blocked_encode": (2, 4),
     "probe_tile_decode": (2, 4),
+    "probe_tile_text_encode": (5, 8),
+    "probe_tile_text_decode": (6, 4),
 }
 # Printed beside the bound by phases 5 and 7, not on the "kernels" line:
 # the plain-op line, the integer operations per cell of a kernel's plain
@@ -150,7 +177,8 @@ BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
 # to the scan (the int32 cast, the shifted copy, the five of new_run, the
 # where, the cummax) and adds the & 0x7F and the cast, 11; C2 swaps the
 # where + cummax of the scan for an & and a where, 35 like K1; C3's plain
-# version is K1's then K2's, 35 + 25; C4's is K1's, C5's K2's.
+# version is K1's then K2's, 35 + 25; C4's is K1's, C5's K2's, C6's K3's
+# and C7's K4's.
 INT32_OPS_PER_SM_PER_CLOCK = 64
 CLOCK_QUERY = ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]
 PLAIN_OPS = {  # name -> the plain version's operations per cell
@@ -163,9 +191,9 @@ PLAIN_OPS = {  # name -> the plain version's operations per cell
     "probe_roundtrip": 60,
     "probe_blocked_encode": 35,
     "probe_tile_decode": 25,
+    "probe_tile_text_encode": 59,
+    "probe_tile_text_decode": 37,
 }
-VALID_WORDS = [b"0|0\t", b"0|1\t", b"1|0\t", b"1|1\t"]
-ESCAPE_WORDS = [b"2|0\t", b"./.\t", b"0/1\t", b"9|9\t", b"1|2\t"]
 ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK")
 # route -> its environment, its kernels, host-clock layers per engine call
 # (None: the call is the parse route's, which the route does not change)
@@ -291,8 +319,8 @@ def cohort_text_batch(vcf: bytes) -> np.ndarray:
 
 def text_encode_cases(rng, vcf, cases):
     """(name, words, n_samples) for K3: the cohort's first batch as
-    gather_text builds it, every K1 case as words, and separator, zero-row
-    and arbitrary-word edges."""
+    gather_text builds it, every K1 case as words, and separator (on group
+    and round edges too), zero-row and arbitrary-word edges."""
     out = [("cohort batch 2048x2560 (gather_text)", cohort_text_batch(vcf), SAMPLES)]
     out += [(name, _words(rng, codes, n), n) for name, codes, n in cases]
     bad = _words(rng, _cohort(rng, 256, 384, 300), 300)
@@ -301,6 +329,7 @@ def text_encode_cases(rng, vcf, cases):
     bad[64:128, 299] |= ord("x") << 24  # sample n - 1's separator is not checked
     bad[128:192, 300:] = rng.integers(-(1 << 31), 1 << 31, (64, 84), dtype=np.int64)  # padding
     out.append(("bad separators 256x384", bad, 300))
+    out += separator_edge_cases()
     zero = _words(rng, _cohort(rng, 256, 2560, 2504), 2504)
     zero[::2] = 0  # the rows gather_text leaves zero for irregular lines and padding
     out.append(("zero rows 256x2560", zero, 2504))
@@ -336,11 +365,11 @@ def _compare(got, want):
 
 def phase2_kernels(rng, vcf):
     stats = {name: {"cases": 0, "mismatches": 0, "max_abs_err": 0}
-             for name in [*KERNELS, *PROBES]}
+             for name in CHECKED}
 
     def check(name, case, x, n, cells=None, want=None):
         """The kernel against its plain version (or against want)."""
-        kernel, plain = (KERNELS[name] if name in KERNELS else PROBES[name])[:2]
+        kernel, plain = CHECKED[name][:2]
         if cells is not None:
             kernel = functools.partial(kernel, cells=cells)
             case = f"{case} cells={cells}"
@@ -358,8 +387,11 @@ def phase2_kernels(rng, vcf):
     flag_cases = malformed_flag_cases(rng) + flag_edge_cases()
     decode_inputs = [(case, check("rle_encode", case, torch.from_numpy(codes).cuda(), n)[0], n)
                      for case, codes, n in cases]
-    text_inputs = [(case, check("text_encode", case, torch.from_numpy(words).cuda(), n)[0], n)
-                   for case, words, n in text_encode_cases(rng, vcf, cases)]
+    text_inputs = []
+    for case, words, n in text_encode_cases(rng, vcf, cases):
+        x = torch.from_numpy(words).cuda()
+        text_inputs.append((case, check("text_encode", case, x, n)[0], n))
+        check("probe_tile_text_encode", case, x, n)
     del cases
     for case, flags, n in flag_cases:
         decode_inputs.append((case, torch.from_numpy(flags).cuda(), n))
@@ -370,6 +402,7 @@ def phase2_kernels(rng, vcf):
         check("probe_tile_decode", f"{case} against K2", flags, n, want=k2)
     for case, flags, n in text_inputs:
         check("text_decode", case, flags, n)
+        check("probe_tile_text_decode", case, flags, n)
     del decode_inputs, text_inputs
     for case, codes, n in probe_cases():
         x = torch.from_numpy(codes).cuda()
@@ -573,19 +606,19 @@ def phase5_times(vcf, stats, launches, int_rate):
         print(f"phase 5: {name} as built: {info['registers']} registers and "
               f"{info['local_bytes']} local bytes a thread, {info['blocks_per_sm']} resident "
               "blocks of 128 threads per SM")
-    rows = []
+    # C6 and C7 get their rows here, with their launches from this phase
+    for probe in TEXT_PROBES:
+        LAUNCHES[probe] = 0
+    rows, probe_rows = [], {}
     for name, (kernel, plain, replaces) in KERNELS.items():
         x = inputs[name]
         xs = rotated(x)
         warm_ms = median_ms(kernel, [x], SAMPLES)
-        if name in EARLIER_DESIGN:
-            probe, cells = EARLIER_DESIGN[name]
-            earlier = PROBES[probe][0]
-            if cells is not None:
-                earlier = functools.partial(earlier, cells=cells)
-            ms, earlier_ms = in_turns(kernel, earlier, xs, xs, SAMPLES)
-        else:
-            ms = median_ms(kernel, xs, SAMPLES)
+        probe, cells = EARLIER_DESIGN[name]
+        earlier = CHECKED[probe][0]
+        if cells is not None:
+            earlier = functools.partial(earlier, cells=cells)
+        ms, earlier_ms = in_turns(kernel, earlier, xs, xs, SAMPLES)
         plain_ms = median_ms(plain, xs, SAMPLES)
         row = _kernel_row(name, SOURCE, replaces, launches[name], stats, (L, W), ms, plain_ms)
         ops_ms = plain_ops_ms(name, L, W, int_rate)
@@ -594,17 +627,24 @@ def phase5_times(vcf, stats, launches, int_rate):
               f"bytes ({row['bound_ms'] / ms:.1%} of the kernel's time), plain-op line "
               f"{ops_ms:.5f} ms (median of {TRIALS} trials of "
               f"{LAUNCHES_PER_TRIAL} launches, cycling through {len(xs)} copies of the input)")
-        if name in EARLIER_DESIGN:
-            copy = torch.empty_like(x)
-            copy_ms = median_ms(lambda src, _n: copy.copy_(src), xs, SAMPLES)
-            shown = probe + ("" if cells is None else f" at {cells} cells")
-            print(f"phase 5: {name} {L}x{W} in turns with its earlier design {shown}: "
-                  f"{ms:.5f} ms against {earlier_ms:.5f} ms ({ms / earlier_ms:.1%}); bound "
-                  f"{row['bound_ms']:.5f} ms, plain-op lines {ops_ms:.5f} and "
-                  f"{plain_ops_ms(probe, L, W, int_rate):.5f} ms; a device copy of its input "
-                  f"plane (Tensor.copy_, the same bytes in and out) {copy_ms:.5f} ms")
+        copy = torch.empty_like(x)
+        copy_ms = median_ms(lambda src, _n: copy.copy_(src), xs, SAMPLES)
+        shown = probe + ("" if cells is None else f" at {cells} cells")
+        earlier_bound = bound(probe, L, W)
+        print(f"phase 5: {name} {L}x{W} in turns with its earlier design {shown}: "
+              f"{ms:.5f} ms against {earlier_ms:.5f} ms ({ms / earlier_ms:.1%}); bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_ms'] / ms:.1%} and "
+              f"{earlier_bound / earlier_ms:.1%} of their times), plain-op lines "
+              f"{ops_ms:.5f} and {plain_ops_ms(probe, L, W, int_rate):.5f} ms; a device copy "
+              f"of its input plane (Tensor.copy_, {x.nbytes:,} bytes in and out) "
+              f"{copy_ms:.5f} ms")
+        if probe in TEXT_PROBES:
+            probe_rows[probe] = (earlier_ms, plain_ms)
         del xs
         rows.append(row)
+    for probe, (ms, plain_ms) in probe_rows.items():
+        rows.append(_kernel_row(probe, PROBE_SOURCE, TEXT_PROBES[probe][2], LAUNCHES[probe],
+                                stats, (L, W), ms, plain_ms))
     return rows
 
 

@@ -23,6 +23,8 @@ INT32_RATE = 64 * 132 * 1980e6  # 64 lanes per SM per clock x 132 SMs x 1,980 MH
         ("probe_blocked_encode", 8192, 2560, 41_975_808),
         ("text_encode", 2048, 2560, 5 * 2048 * 2560 + 8 * 2048),
         ("text_decode", 2048, 2560, 6 * 2048 * 2560 + 4 * 2048),
+        ("probe_tile_text_encode", 2048, 2560, 5 * 2048 * 2560 + 8 * 2048),
+        ("probe_tile_text_decode", 2048, 2560, 6 * 2048 * 2560 + 4 * 2048),
     ],
 )
 def test_bound_is_the_bytes_at_the_memory_rate(name, L, W, nbytes):
@@ -34,14 +36,17 @@ def test_k1_bound_at_one_engine_batch():
 
 
 @pytest.mark.parametrize("name,ops", [("rle_encode", 35), ("rle_decode", 25),
-                                      ("probe_tile_decode", 25), ("probe_roundtrip", 60)])
+                                      ("probe_tile_decode", 25), ("probe_roundtrip", 60),
+                                      ("probe_tile_text_encode", 59),
+                                      ("probe_tile_text_decode", 37)])
 def test_plain_op_line(name, ops):
     got = chip_smoke.plain_ops_ms(name, 2048, 2560, INT32_RATE)
     assert got == pytest.approx(ops * 2048 * 2560 / INT32_RATE * 1e3, rel=1e-12)
 
 
 def test_every_kernel_and_probe_has_terms_a_count_and_a_row():
-    names = [*chip_smoke.KERNELS, *chip_smoke.PROBES]
+    names = list(chip_smoke.CHECKED)
+    assert names == [*chip_smoke.KERNELS, *chip_smoke.PROBES, *chip_smoke.TEXT_PROBES]
     assert (set(names) == set(chip_smoke.BOUND_BYTES) == set(chip_smoke.PLAIN_OPS)
             == set(cuda_rle.LAUNCHES))
     stats = {name: {"max_abs_err": 0, "mismatches": 0} for name in names}
@@ -57,8 +62,23 @@ def test_every_kernel_and_probe_has_terms_a_count_and_a_row():
 
 def test_earlier_designs_are_probes_of_the_kernels_line():
     for kernel, (probe, cells) in chip_smoke.EARLIER_DESIGN.items():
-        assert kernel in chip_smoke.KERNELS and probe in chip_smoke.PROBES
+        assert kernel in chip_smoke.KERNELS and probe in chip_smoke.CHECKED
         assert cells in (None, *cuda_rle.PROBE_CELLS)
+
+
+def test_every_kernel_is_timed_beside_its_earlier_design():
+    """K1-K4 each have a tile design; C6 and C7, which the ablation does
+    not time, move K3's and K4's bytes, compute their plain versions and
+    replace the same TPU kernels."""
+    assert set(chip_smoke.EARLIER_DESIGN) == set(chip_smoke.KERNELS)
+    assert set(chip_smoke.TEXT_PROBES) == {"probe_tile_text_encode", "probe_tile_text_decode"}
+    assert not set(chip_smoke.TEXT_PROBES) & set(chip_smoke.PROBES)
+    for kernel in ("text_encode", "text_decode"):
+        probe = chip_smoke.EARLIER_DESIGN[kernel][0]
+        assert probe in chip_smoke.TEXT_PROBES
+        assert chip_smoke.BOUND_BYTES[probe] == chip_smoke.BOUND_BYTES[kernel]
+        assert chip_smoke.PLAIN_OPS[probe] == chip_smoke.PLAIN_OPS[kernel]
+        assert chip_smoke.TEXT_PROBES[probe][1:] == chip_smoke.KERNELS[kernel][1:]
 
 
 def test_main_refuses_without_a_cuda_device(monkeypatch, capsys):

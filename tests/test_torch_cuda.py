@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from vcfc_tpu_torch import engine
-from vcfc_tpu_torch.eval.edge_cases import encode_edge_cases, flag_edge_cases
+from vcfc_tpu_torch.eval.edge_cases import encode_edge_cases, flag_edge_cases, text_edge_cases
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch.ops import _build, cuda_rle, probe
 from vcfc_tpu_torch.ops.rle import (
@@ -29,6 +29,7 @@ pytestmark = pytest.mark.cuda
 P = [0.81, 0.072, 0.072, 0.0264, 0.0196]
 EDGE = encode_edge_cases()
 FLAG_EDGE = flag_edge_cases()
+TEXT_EDGE = text_edge_cases()
 
 
 @pytest.fixture
@@ -45,6 +46,15 @@ def cuda_device():
 def _assert_equal(got, want):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _misaligned(x):
+    """A contiguous copy of x whose data starts one element past where a
+    new tensor's would, so no row start is 16-byte aligned."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 @pytest.mark.parametrize(
@@ -124,6 +134,47 @@ def test_text_kernels_match_plain(cuda_device, L, W, S):
     malformed = torch.from_numpy(rng.integers(0, 256, (L, W), dtype=np.uint8)).to(cuda_device)
     malformed[torch.rand(L, W, device=cuda_device) < 0.97] = 0
     _assert_equal(cuda_rle.cuda_text_decode(malformed, S), text_rle_decode_plain(malformed, S))
+    _assert_equal(cuda_rle.cuda_probe_tile_text_encode(x, S), (flags, nseg, seps_ok))
+    _assert_equal(cuda_rle.cuda_probe_tile_text_decode(malformed, S),
+                  text_rle_decode_plain(malformed, S))
+
+
+@pytest.mark.parametrize("layout", ["as cut", "width 1000", "misaligned start"])
+@pytest.mark.parametrize("case", range(len(TEXT_EDGE)), ids=[name for name, _, _ in TEXT_EDGE])
+def test_text_edge_cases_match_plain(cuda_device, case, layout):
+    """K3 and C6 on the edge cases as words, then K4 and C7 on K3's flags:
+    at the case's width (1,024), cut to 1,000 columns (no multiple of 16,
+    so no row but the first starts on a 16-byte boundary) and starting
+    one element past an aligned address."""
+    _name, words, n = TEXT_EDGE[case]
+    if layout == "width 1000":
+        words = np.ascontiguousarray(words[:, :1000])
+    x = torch.from_numpy(words).to(cuda_device)
+    if layout == "misaligned start":
+        x = _misaligned(x)
+    want = text_rle_encode_plain(x, n)
+    _assert_equal(cuda_rle.cuda_text_encode(x, n), want)
+    _assert_equal(cuda_rle.cuda_probe_tile_text_encode(x, n), want)
+    flags = _misaligned(want[0]) if layout == "misaligned start" else want[0]
+    want = text_rle_decode_plain(flags, n)
+    _assert_equal(cuda_rle.cuda_text_decode(flags, n), want)
+    _assert_equal(cuda_rle.cuda_probe_tile_text_decode(flags, n), want)
+
+
+@pytest.mark.parametrize("case", range(len(FLAG_EDGE)), ids=[name for name, _, _ in FLAG_EDGE])
+def test_text_decode_of_flag_edge_cases_matches_plain(cuda_device, case):
+    _name, flags, S = FLAG_EDGE[case]
+    x = torch.from_numpy(flags).to(cuda_device)
+    want = text_rle_decode_plain(x, S)
+    _assert_equal(cuda_rle.cuda_text_decode(x, S), want)
+    _assert_equal(cuda_rle.cuda_probe_tile_text_decode(x, S), want)
+    _assert_equal(cuda_rle.cuda_text_decode(_misaligned(x), S), want)
+
+
+@pytest.mark.parametrize("kernel", ["rle_encode", "rle_decode", "text_encode", "text_decode"])
+def test_kernel_info_reports_every_kernel(cuda_device, kernel):
+    info = cuda_rle.kernel_info(kernel)
+    assert info["registers"] > 0 and info["local_bytes"] >= 0 and info["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("parse", [None, "device"], ids=["parse-route", "text-route"])

@@ -6,14 +6,16 @@ runs it) and the port's plain PyTorch versions.  Every output is integers,
 so every comparison is exact.  The CUDA kernels are held to the plain
 versions in tests/test_torch_cuda.py; here, numpy models of their group
 arithmetic (the per-group remainder recurrence, and K1's and K2's word
-operations as csrc/rle_kernels.cu writes them) are held to the plain
-versions on the same planes and on the edge cases of
-vcfc_tpu_torch.eval.edge_cases.
+operations as csrc/rle_kernels.cu writes them, from
+tests/_torch_word_models.py) are held to the plain versions on the same
+planes and on the edge cases of vcfc_tpu_torch.eval.edge_cases.
 """
 
 import numpy as np
 import pytest
 import torch
+
+from _torch_word_models import k1_word_model, k2_word_model
 
 from vcfc_tpu.ops import rle as jax_rle
 from vcfc_tpu.ops.pallas_rle import _block_l, pallas_rle_decode, pallas_rle_encode
@@ -276,202 +278,10 @@ def test_group_counter_model_matches_plain(group, name):
     _assert_equal(_counter_model(codes, S, group), torch_rle.rle_encode_plain(_t(codes), S))
 
 
-# SIMD-within-a-word operations on uint32 arrays, as CUDA defines them
-_U = np.uint32
-
-
-def _u(x):
-    return np.asarray(x, dtype=np.int64).astype(_U)
-
-
-def _bytes(x):
-    return np.ascontiguousarray(_u(x)).view(np.uint8).reshape(np.shape(x) + (4,))
-
-
-def _word(b):
-    return np.ascontiguousarray(b.astype(np.uint8)).view(_U).reshape(b.shape[:-1])
-
-
-def _byte_perm(x, y, s):
-    x, y, s = np.broadcast_arrays(_u(x), _u(y), _u(s))
-    src = np.concatenate([_bytes(x), _bytes(y)], axis=-1)
-    sel = np.stack([(s >> _U(4 * i)) & _U(7) for i in range(4)], axis=-1).astype(np.intp)
-    return _word(np.take_along_axis(src, sel, axis=-1))
-
-
-def _below(t):
-    t = np.asarray(t, np.int64)
-    return _u(np.where(t <= 0, 0, np.where(t >= 32, 0xFFFFFFFF, (1 << np.clip(t, 0, 31)) - 1)))
-
-
-_MSBS, _LOW7 = _U(0x80808080), _U(0x7F7F7F7F)
-
-
-def _nonzero(t):
-    return (((t & _LOW7) + _LOW7) | t) & _MSBS
-
-
-def _byte_msbs(s):
-    return (s * _U(0x00204081)) >> _U(28)
-
-
-def _msbs_to_bytes(s):
-    return (s >> _U(7)) * _U(0xFF)
-
-
-def _funnelshift_l(lo, hi, shift):
-    return (hi << _U(shift)) | (lo >> _U(32 - shift))
-
-
-def _bits_to_bytes(b):
-    return (((b & _U(0xF)) * _U(0x00204081)) & _U(0x01010101)) * _U(0xFF)
-
-
-def _nibbles(m):
-    t = m | (m >> _U(4))
-    return (t & _U(0xFF)) | ((t >> _U(8)) & _U(0xFF00))
-
-
-def _splat(b):
-    return _u(b) * _U(0x01010101)
-
-
-def _bit(mask, k):
-    return (mask >> _U(k)) & _U(1)
-
-
-def _popc(mask):
-    return sum(_bit(mask, k).astype(np.int64) for k in range(32))
-
-
-def _group_words(plane, p0):
-    """The 16 cells at p0 of every row as four words; 0 past the width."""
-    group = np.zeros((plane.shape[0], 16), np.uint8)
-    cut = plane[:, p0 : p0 + 16]
-    group[:, : cut.shape[1]] = cut
-    return [_word(group[:, 4 * j : 4 * j + 4]) for j in range(4)]
-
-
-def _k1_word_model(codes, n):
-    """K1's group arithmetic (rle_encode_rows_kernel), group by group left
-    to right over all rows at once; the warp scan is the running max."""
-    L, W = codes.shape
-    end = min(n, W)
-    flags = np.zeros((L, W), np.uint8)
-    count = np.zeros(L, np.int64)
-    carry = np.full(L, -1, np.int64)
-    for p0 in range(0, W, 16):
-        x = _group_words(codes, p0)
-        prev = codes[:, p0 - 1].astype(np.int64) if p0 > 0 else None
-        S = np.zeros(L, _U)
-        word_before = _u(prev) << _U(24) if prev is not None else np.zeros(L, _U)
-        esc_before = _u(np.where(prev == 4, 0x80000000, 0)) if prev is not None else np.zeros(L, _U)
-        for j in range(4):
-            esc = _nonzero(x[j] ^ _splat(4)) ^ _MSBS
-            s = (_nonzero(x[j] ^ _funnelshift_l(word_before, x[j], 8)) | esc
-                 | _funnelshift_l(esc_before, esc, 8))
-            S |= _byte_msbs(s) << _U(4 * j)
-            word_before, esc_before = x[j], esc
-        if prev is None:
-            S |= _U(1)
-        if p0 + 16 < W:
-            nxt, last_code = codes[:, p0 + 16].astype(np.int64), (x[3] >> _U(24)).astype(np.int64)
-            S |= np.where((nxt != last_code) | (nxt == 4) | (last_code == 4), _U(1 << 16), _U(0))
-        S &= _below(W - p0)
-        own = (S & _U(0xFFFF)).astype(np.int64)
-        hb = np.full(L, -1, np.int64)
-        for k in range(16):
-            hb = np.where((own >> k) & 1, k, hb)
-        run_start = carry
-        carry = np.maximum(carry, np.where(own > 0, p0 + hb, -1))
-        c0 = (x[0] & _U(0xFF)).astype(np.int64)
-        cap0 = np.where(c0 == 0, 127, 31)
-        d0 = np.where(_bit(S, 0) > 0, 0, p0 - run_start)
-        rem0 = np.where(c0 == 0, d0 % 127, d0 % 31)
-        B = S.copy()
-        wrap = np.where(rem0 == 0, 0, cap0 - rem0)
-        ok = (wrap <= 16) & ((S & _below(wrap)) == 0)
-        B |= np.where(ok, _u(1) << _u(np.minimum(wrap, 16)), _U(0))
-        B &= _below(W - p0)
-        count += _popc(B & _below(min(end - p0, 16)))
-        Lm = (B >> _U(1)) & _below(end - p0 - 1)
-        if n > p0 and n - p0 <= 16 and n <= W:
-            Lm |= _U(1 << (n - 1 - p0))
-        F_in, seen_in = np.zeros(L, _U), np.zeros(L, _U)
-        f = []
-        for j in range(4):
-            k1 = _U(0x04030201) + _splat(4 * j)
-            seen = _bits_to_bytes(B >> _U(4 * j))
-            F = k1 & seen
-            F |= ~seen & (F << _U(8))
-            seen |= seen << _U(8)
-            F |= ~seen & (F << _U(16))
-            seen |= seen << _U(16)
-            F |= ~seen & F_in
-            seen |= seen_in
-            F_in = _byte_perm(F, 0, 0x3333)
-            seen_in = _u(np.where(seen >> _U(31), 0xFFFFFFFF, 0))
-            rem = (seen & (k1 - F)) | (~seen & (_splat(rem0) + k1 - _splat(1)))
-            low = _byte_perm(0x80C0A000, 0, _nibbles(x[j] & _splat(3)))
-            high = _msbs_to_bytes(_nonzero(x[j] & _splat(0xFC)))
-            base = (low & ~high) | (high & _splat(0xE0))
-            f.append((base | (rem + _splat(1))) & _bits_to_bytes(Lm >> _U(4 * j)))
-        out = np.stack([_bytes(w) for w in f], axis=1).reshape(L, 16)
-        flags[:, p0 : p0 + 16] = out[:, : min(16, W - p0)]
-    return flags, count.astype(np.int32)
-
-
-def _k2_word_model(flags, n):
-    """K2's group arithmetic (rle_decode_rows_kernel), group by group right
-    to left over all rows at once."""
-    L, W = flags.shape
-    end = min(n, W)
-    codes = np.zeros((L, W), np.uint8)
-    total = np.zeros(L, np.int64)
-    carry = np.full(L, 4, np.int64)
-    for p0 in range((W - 1) // 16 * 16, -1, -16):
-        x = _group_words(flags, p0)
-        P = np.zeros(L, _U)
-        for j in range(4):
-            P |= _byte_msbs(_nonzero(x[j])) << _U(4 * j)
-        in_code = carry
-        first = np.full(L, -1, np.int64)
-        for k in range(15, -1, -1):
-            word = x[k // 4]
-            code = _byte_perm(0, 0x04020103, (word >> _U(8 * (k % 4) + 5)) & _U(7)) & _U(0xFF)
-            first = np.where(_bit(P, k) > 0, code.astype(np.int64), first)
-        carry = np.where(first >= 0, first, carry)
-        fill = _u(in_code)
-        c = [None] * 4
-        for j in range(3, -1, -1):
-            known = _msbs_to_bytes(_nonzero(x[j]))
-            v = _byte_perm(0, 0x04020103, _nibbles((x[j] >> _U(5)) & _U(0x07070707))) & known
-            v |= ~known & (v >> _U(8))
-            known |= known >> _U(8)
-            v |= ~known & (v >> _U(16))
-            known |= known >> _U(16)
-            c[j] = v | (~known & _splat(fill))
-            fill = c[j] & _U(0xFF)
-        below_n = end - p0
-        halves = np.zeros(L, _U)
-        for j in range(4 if below_n > 0 else 0):
-            hi = _msbs_to_bytes(x[j] & _MSBS)
-            esc = _msbs_to_bytes(x[j] & (x[j] << _U(1)) & (x[j] << _U(2)) & _MSBS)
-            run_len = x[j] & (_LOW7 ^ (hi & _splat(0x60)))
-            run_len = (run_len & ~esc) | (esc & _splat(1))
-            if below_n < 16:
-                run_len &= _bits_to_bytes(_below(below_n) >> _U(4 * j))
-            halves += (run_len & _U(0x00FF00FF)) + ((run_len >> _U(8)) & _U(0x00FF00FF))
-        total += ((halves & _U(0xFFFF)) + (halves >> _U(16))).astype(np.int64)
-        out = np.stack([_bytes(w) for w in c], axis=1).reshape(L, 16)
-        codes[:, p0 : p0 + 16] = out[:, : min(16, W - p0)]
-    return codes, total.astype(np.int32)
-
-
 @pytest.mark.parametrize("name", CASES + list(EDGE))
 def test_k1_word_model_matches_plain(name):
     codes, S = _encode_case(name)
-    _assert_equal(_k1_word_model(codes, S), torch_rle.rle_encode_plain(_t(codes), S))
+    _assert_equal(k1_word_model(codes, S), torch_rle.rle_encode_plain(_t(codes), S))
 
 
 @pytest.mark.parametrize("name", CASES + list(EDGE) + list(FLAG_EDGE) + ["malformed"])
@@ -485,7 +295,7 @@ def test_k2_word_model_matches_plain(name):
     else:
         codes, S = _encode_case(name)
         flags = torch_rle.rle_encode_plain(_t(codes), S)[0].numpy()
-    _assert_equal(_k2_word_model(flags, S), torch_rle.rle_decode_plain(_t(flags), S))
+    _assert_equal(k2_word_model(flags, S), torch_rle.rle_decode_plain(_t(flags), S))
 
 
 def test_build_compiles_once_per_source(monkeypatch, tmp_path):
@@ -517,3 +327,44 @@ def test_geometry_sweep_patches_only_a_copy(rows, blocks):
     assert len(changed) == 2 + (rows != 4)
     assert len(source.splitlines()) == len(patched.splitlines())
     assert "constexpr int CTA_WARPS = 4;" in source
+
+
+def _sweep_result(kernels):
+    builds = [{"rows_per_cta": r, "min_blocks": b,
+               **{k: {"registers": 40 + i, "local_bytes": 0, "blocks_per_sm": 9}
+                  for i, k in enumerate(kernels)}} for r, b in geometry_sweep.GRID]
+    ms = {plane: {f"{r},{b}": {k: 0.01 * (1 + i) for i, k in enumerate(kernels)}
+                  for r, b in geometry_sweep.GRID}
+          for plane in ("cohort batch 2048x2560", "gt_codes 8192x2560")}
+    return {"device": "card", "builds": builds, "ms": ms}
+
+
+def test_geometry_sweep_table_lists_k1_to_k4():
+    """The sweep times and reports all four kernels, in the order of
+    vcfc_cuda_rle_kernel_info, on both planes."""
+    assert geometry_sweep.KERNELS == tuple(cuda_rle._INFO_KERNELS)
+    lines = geometry_sweep.table(_sweep_result(geometry_sweep.KERNELS))
+    heads = [line for line in lines if "rows/CTA" in line]
+    assert len(heads) == 3 and all(h.split()[-4:] == ["K1", "K2", "K3", "K4"] for h in heads)
+    rows = [line.split() for line in lines if line.startswith("  ") and "rows/CTA" not in line]
+    assert len(rows) == 3 * len(geometry_sweep.GRID)
+    assert rows[0][2:] == ["0.01000", "0.02000", "0.03000", "0.04000"]
+    assert rows[-1][2:] == ["40/0/9", "41/0/9", "42/0/9", "43/0/9"]
+    assert all(line == line.rstrip() for line in lines)
+
+
+@pytest.mark.parametrize("kernel", geometry_sweep.KERNELS)
+def test_geometry_sweep_outputs_are_the_plain_versions(kernel):
+    """The sweep's ctypes launch allocates each kernel's outputs as its
+    plain version returns them, so a build is held to it with torch.equal;
+    the text kernels take the codes rendered as words."""
+    codes, n = _encode_case(CASES[0])
+    flags = torch_rle.rle_encode_plain(_t(codes), n)[0]
+    x = {"rle_encode": _t(codes), "rle_decode": flags, "text_decode": flags,
+         "text_encode": torch_rle.text_rle_decode_plain(flags, n)[0]}[kernel]
+    want = geometry_sweep.PLAIN[kernel](x, n)
+    spec = geometry_sweep.OUTPUTS[kernel]
+    assert len(want) == len(spec)
+    for out, dtype in zip(want, spec):
+        assert out.dtype == (dtype or torch.int32)
+        assert out.shape == (x.shape if dtype else x.shape[:1])

@@ -19,68 +19,20 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_word_models import TEXT_CASES, text_case
 from test_fuzz import make_vcf
 
 from vcfc_tpu import engine as jax_engine
 from vcfc_tpu.format import compress_bytes, decompress_bytes
 from vcfc_tpu.ops import rle as jax_rle
-from vcfc_tpu.ops.pallas_rle import _block_l, pallas_text_decode, pallas_text_encode
+from vcfc_tpu.ops.pallas_rle import pallas_text_decode, pallas_text_encode
 from vcfc_tpu_torch import engine
 from vcfc_tpu_torch.ops import cuda_rle
 from vcfc_tpu_torch.ops import rle as torch_rle
 
 CPU = "cpu"
-FIELDS = [b"0|0", b"0|1", b"1|0", b"1|1", b"2|0", b"./.", b"0/1", b"9|9"]
-PICK = [0.7, 0.08, 0.08, 0.06, 0.03, 0.03, 0.01, 0.01]
-
-
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy())
-
-
-def _words(rng, L, S, S_pad):
-    """(L, S_pad) int32 words of random genotype fields: tab separators,
-    '\\n' on sample S - 1 (as test_pallas's _words), zero padding."""
-    table = np.array([int.from_bytes(f + b"\t", "little") for f in FIELDS], np.uint32)
-    words = np.zeros((L, S_pad), np.uint32)
-    words[:, :S] = table[rng.choice(len(FIELDS), size=(L, S), p=PICK)]
-    words[:, S - 1] = (words[:, S - 1] & 0x00FFFFFF) | (10 << 24)
-    return words.view(np.int32)
-
-
-def _text_case(name):
-    """(words (L, S_pad) int32, n_samples); L is the Pallas text tile
-    height at S_pad, so each case runs through the Pallas kernels too."""
-    rng = np.random.default_rng(sum(map(ord, name)))
-    if name == "pallas-300":  # tests/test_pallas.py's shapes
-        return _words(rng, _block_l(384, 2), 300, 384), 300
-    if name == "pallas-290":
-        return _words(rng, _block_l(384, 2), 290, 384), 290
-    if name in ("S=1", "S=127", "S=128"):
-        S = int(name[2:])
-        return _words(rng, _block_l(128, 2), S, 128), S
-    if name == "bad-separators":
-        words = _words(rng, _block_l(384, 2), 300, 384)
-        rows = np.arange(64)
-        cols = rng.integers(0, 299, 64)
-        words[rows, cols] = (words[rows, cols] & 0x00FFFFFF) | (ord("x") << 24)
-        words[64:128, 299] = (words[64:128, 299] & 0x00FFFFFF) | (ord("x") << 24)  # not checked
-        return words, 300
-    if name == "zero-rows":
-        words = _words(rng, _block_l(2560, 2), 2504, 2560)
-        words[::3] = 0  # gather_text's rows for irregular lines and padding
-        return words, 2504
-    if name == "random-words":
-        return rng.integers(-(1 << 31), 1 << 31, (_block_l(1024, 2), 1024)).astype(np.int32), 1000
-    if name == "width-16384":
-        return _words(rng, _block_l(16384, 2), 16300, 16384), 16300
-    raise KeyError(name)
-
-
-TEXT_CASES = [
-    "pallas-300", "pallas-290", "S=1", "S=127", "S=128", "bad-separators",
-    "zero-rows", "random-words", "width-16384",
-]
 
 
 def _assert_equal(got, want):
@@ -91,13 +43,13 @@ def _assert_equal(got, want):
 
 @pytest.mark.parametrize("name", TEXT_CASES)
 def test_text_encode_matches_xla(name):
-    words, S = _text_case(name)
+    words, S = text_case(name)
     _assert_equal(torch_rle.text_rle_encode_plain(_t(words), S), jax_rle.text_rle_encode(words, S))
 
 
 @pytest.mark.parametrize("name", TEXT_CASES)
 def test_text_encode_matches_pallas(name):
-    words, S = _text_case(name)
+    words, S = text_case(name)
     _assert_equal(
         torch_rle.text_rle_encode_plain(_t(words), S),
         pallas_text_encode(words, S, interpret=True),
@@ -106,7 +58,7 @@ def test_text_encode_matches_pallas(name):
 
 @pytest.mark.parametrize("name", TEXT_CASES)
 def test_text_decode_matches_xla_and_pallas(name):
-    words, S = _text_case(name)
+    words, S = text_case(name)
     flags = np.asarray(jax_rle.text_rle_encode(words, S)[0])
     got = torch_rle.text_rle_decode_plain(_t(flags), S)
     _assert_equal(got, jax_rle.text_rle_decode(flags, S))
@@ -114,7 +66,7 @@ def test_text_decode_matches_xla_and_pallas(name):
 
 
 def test_bad_separator_rows_are_flagged():
-    words, S = _text_case("bad-separators")
+    words, S = text_case("bad-separators")
     seps_ok = torch_rle.text_rle_encode_plain(_t(words), S)[2].numpy()
     assert seps_ok[:64].tolist() == [0] * 64
     assert (seps_ok[64:] == 1).all()
@@ -123,7 +75,7 @@ def test_bad_separator_rows_are_flagged():
 def test_text_round_trip_is_a_fixed_point():
     """decode(encode(words)) renders the words, escapes as "?|?", and a
     second pass changes nothing."""
-    words, S = _text_case("pallas-300")
+    words, S = text_case("pallas-300")
     f, _k, _r = torch_rle.text_rle_encode_plain(_t(words), S)
     t1, _c, d = torch_rle.text_rle_decode_plain(f, S)
     assert (d.numpy() == S).all()
@@ -177,7 +129,7 @@ def test_pallas_text_decode_differs_from_the_port_on_malformed_planes(seed, W, S
 
 
 def test_cpu_tensors_take_the_plain_text_versions():
-    words, S = _text_case("pallas-300")
+    words, S = text_case("pallas-300")
     before = dict(cuda_rle.LAUNCHES)
     want = torch_rle.text_rle_encode_plain(_t(words), S)
     _assert_equal(torch_rle.text_rle_encode(_t(words), S), want)

@@ -1,8 +1,9 @@
-// Ablation probes of the Hopper RLE kernels K1/K2 (rle_kernels.cu).  C4 at
+// Ablation probes of the Hopper RLE kernels K1-K4 (rle_kernels.cu).  C4 at
 // 16 cells and C5 are the tile design that K1 and K2 had before they
-// became warp-per-row kernels; C1-C3 each keep part of that design's work
-// and cut the rest, so that timing them beside C4 and C5 splits where its
-// time went, and timing K1 and K2 beside C4 and C5 measures the rewrite.
+// became warp-per-row kernels, C6 and C7 that of K3 and K4; C1-C3 each
+// keep part of that design's work and cut the rest, so that timing them
+// beside C4 and C5 splits where its time went, and timing K1-K4 beside
+// C4-C7 measures the rewrite.
 // "K1's" and "K2's" below name the function, which both designs compute.
 //
 // C1 scan_only_kernel<V> replaces scripts/kernel_ceiling.py::enc_scan_only
@@ -28,13 +29,22 @@
 // keys, two barriers a tile), so that K2 can be timed against it; it
 // replaces what K2 replaces, vcfc_tpu/ops/pallas_rle.py::_decode_kernel,
 // and its outputs are K2's.
+// C6 tile_text_encode_kernel and C7 tile_text_decode_kernel: the tile
+// designs K3 and K4 had before they became warp-per-row kernels, kept as
+// they were (one CTA per row; C6 classifies each word, and each thread its
+// two neighbour words again, with byte extracts and branches, then
+// encode_tile; C7 runs decode_tile, then renders each cell with selects),
+// so that K3 and K4 can be timed against them.  They replace what K3 and
+// K4 replace, vcfc_tpu/ops/pallas_rle.py::_text_encode_kernel and
+// ::_text_decode_kernel, and their outputs are K3's and K4's.
 //
-// What bounds them: like K1 and K2, a byte in and a byte out per cell and
-// a few dozen integer operations per cell; the probes differ from K1/K2
-// only in the operations, which is what they measure.  Every probe walks a
-// row in tiles with encode_tile's / decode_tile's carries, so every run
-// boundary, at tile and thread edges too, is K1's, and every fill K2's.  The plain PyTorch
-// versions in vcfc_tpu_torch/ops/probe.py are the spec.
+// What bounds them: like K1 and K2, a byte in and a byte out per cell (C6
+// and C7: K3's and K4's bytes) and a few dozen integer operations per
+// cell; the probes differ from K1-K4 only in the operations, which is what
+// they measure.  Every probe walks a row in tiles with encode_tile's /
+// decode_tile's carries, so every run boundary, at tile and thread edges
+// too, is K1's, and every fill K2's.  The plain PyTorch versions in
+// vcfc_tpu_torch/ops/probe.py and ops/rle.py are the spec.
 //
 // Plain C interface (loaded with ctypes): every entry point launches on
 // the given stream, allocates nothing, and returns cudaGetLastError().
@@ -188,6 +198,130 @@ tile_decode_kernel(const uint8_t* __restrict__ flags, uint8_t* __restrict__ code
   if (threadIdx.x == 0) decoded[blockIdx.x] = total;
 }
 
+// The 4-byte-word forms: four 16-byte loads or stores where aligned.
+__device__ __forceinline__ void load_words(const uint32_t* row, int p, int w,
+                                           bool vec_ok, uint32_t v[VEC]) {
+  if (vec_ok && p + VEC <= w) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const uint4 x = reinterpret_cast<const uint4*>(row + p)[q];
+      v[4 * q] = x.x;
+      v[4 * q + 1] = x.y;
+      v[4 * q + 2] = x.z;
+      v[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) v[k] = p + k < w ? row[p + k] : 0;
+  }
+}
+
+__device__ __forceinline__ void store_words(uint32_t* row, int p, int w,
+                                            bool vec_ok, const uint32_t v[VEC]) {
+  if (vec_ok && p + VEC <= w) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q)
+      reinterpret_cast<uint4*>(row + p)[q] =
+          make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      if (p + k < w) row[p + k] = v[k];
+  }
+}
+
+// A little-endian word b0 | b1 << 8 | b2 << 16 | sep << 24 is 2a + b when
+// b0 = a and b2 = b are '0' or '1' and b1 is '|', and an escape otherwise
+// (the reference's four-GT match, compress.cpp:126-170).
+__device__ __forceinline__ int classify_word(uint32_t t) {
+  const int b0 = t & 0xFF, b1 = (t >> 8) & 0xFF, b2 = (t >> 16) & 0xFF;
+  const bool valid = ((b0 - 48) & ~1) == 0 && b1 == 124 && ((b2 - 48) & ~1) == 0;
+  return valid ? (b0 - 48) * 2 + (b2 - 48) : CODE_ESCAPE;
+}
+
+// A code's word: "?|?" for an escape, separator '\n' on the row's last
+// sample and '\t' elsewhere.
+__device__ __forceinline__ uint32_t render_word(int code, bool last) {
+  const uint32_t b0 = code == CODE_ESCAPE ? 63 : 48 + (code >> 1);
+  const uint32_t b2 = code == CODE_ESCAPE ? 63 : 48 + (code & 1);
+  return b0 | (124u << 8) | (b2 << 16) | ((last ? 10u : 9u) << 24);
+}
+
+// C6: (rows, w) int32 words -> flags, nseg, seps_ok (K3's outputs).  Each
+// word, and the neighbour words of the look-behind and look-ahead, is
+// classified in registers.  seps_ok is 1 iff every separator byte before
+// sample n - 1 is a tab (so 1 for n <= 1), by a block sum of the bad
+// separators.
+__global__ void __launch_bounds__(MAX_THREADS)
+tile_text_encode_kernel(const uint32_t* __restrict__ text, uint8_t* __restrict__ flags,
+                        int32_t* __restrict__ nseg, int32_t* __restrict__ seps_ok,
+                        int w, int n, bool vec_ok) {
+  __shared__ int s_scan[MAX_WARPS];
+  __shared__ int s_sum[MAX_WARPS];
+  __shared__ int s_bad[MAX_WARPS];
+  const uint32_t* in = text + int64_t(blockIdx.x) * w;
+  uint8_t* out = flags + int64_t(blockIdx.x) * w;
+  const int tile = blockDim.x * VEC;
+  int carry = -1, count = 0, bad = 0;
+  for (int t0 = 0; t0 < w; t0 += tile) {
+    const int p0 = t0 + threadIdx.x * VEC;
+    const bool active = p0 < w;
+    uint8_t c[VEC], f[VEC];
+    int prev = -1, next = -1;
+    if (active) {
+      uint32_t t[VEC];
+      load_words(in, p0, w, vec_ok, t);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        c[k] = uint8_t(classify_word(t[k]));
+        if (p0 + k < w && p0 + k < n - 1 && (t[k] >> 24) != 9) ++bad;
+      }
+      prev = p0 > 0 ? classify_word(in[p0 - 1]) : -1;
+      next = p0 + VEC < w ? classify_word(in[p0 + VEC]) : -1;
+    }
+    encode_tile<VEC>(c, prev, next, p0, w, n, active, carry, count, s_scan, f);
+    if (active) store_cells<VEC>(out, p0, w, vec_ok, f);
+  }
+  const int total = block_sum(count, s_sum);
+  const int total_bad = block_sum(bad, s_bad);
+  if (threadIdx.x == 0) {
+    nseg[blockIdx.x] = total;
+    seps_ok[blockIdx.x] = total_bad == 0;
+  }
+}
+
+// C7: (rows, w) uint8 flags -> words, codes, decoded (K4's outputs).  The
+// words are rendered from the codes in registers; the '\n' goes at n - 1
+// whatever that cell holds.
+__global__ void __launch_bounds__(MAX_THREADS)
+tile_text_decode_kernel(const uint8_t* __restrict__ flags, uint32_t* __restrict__ text,
+                        uint8_t* __restrict__ codes, int32_t* __restrict__ decoded,
+                        int w, int n, bool vec_ok) {
+  __shared__ int s_scan[MAX_WARPS];
+  __shared__ int s_sum[MAX_WARPS];
+  const uint8_t* in = flags + int64_t(blockIdx.x) * w;
+  uint8_t* out = codes + int64_t(blockIdx.x) * w;
+  uint32_t* words = text + int64_t(blockIdx.x) * w;
+  const int tile = blockDim.x * VEC;
+  int carry = 0xFF, sum = 0;
+  for (int t0 = (w - 1) / tile * tile; t0 >= 0; t0 -= tile) {
+    const int p0 = t0 + threadIdx.x * VEC;
+    const bool active = p0 < w;
+    uint8_t f[VEC], c[VEC];
+    if (active) load_cells<VEC>(in, p0, w, vec_ok, f);
+    decode_tile(f, p0, n, active, carry, sum, s_scan, c);
+    if (active) {
+      store_cells<VEC>(out, p0, w, vec_ok, c);
+      uint32_t t[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) t[k] = render_word(c[k], p0 + k == n - 1);
+      store_words(words, p0, w, vec_ok, t);
+    }
+  }
+  const int total = block_sum(sum, s_sum);
+  if (threadIdx.x == 0) decoded[blockIdx.x] = total;
+}
+
 // The widest row roundtrip_kernel takes: the block's opt-in shared memory
 // less its static shared memory; -1 if the device cannot be queried.
 int roundtrip_max_width() {
@@ -300,6 +434,33 @@ int vcfc_cuda_probe_tile_decode(const void* flags, void* codes, void* decoded, l
   auto* out = static_cast<uint8_t*>(codes);
   tile_decode_kernel<<<unsigned(rows), block_threads(width), 0, cudaStream_t(stream)>>>(
       in, out, static_cast<int32_t*>(decoded), width, n_samples, vec_aligned(width, in, out));
+  return int(cudaGetLastError());
+}
+
+// text: (rows, width) int32 words, flags: (rows, width) uint8, row-major;
+// nseg, seps_ok: (rows,) int32.
+int vcfc_cuda_probe_tile_text_encode(const void* text, void* flags, void* nseg, void* seps_ok,
+                                     long long rows, int width, int n_samples, void* stream) {
+  if (bad_shape(rows, width)) return int(cudaErrorInvalidValue);
+  const auto* in = static_cast<const uint32_t*>(text);
+  auto* out = static_cast<uint8_t*>(flags);
+  tile_text_encode_kernel<<<unsigned(rows), block_threads(width), 0, cudaStream_t(stream)>>>(
+      in, out, static_cast<int32_t*>(nseg), static_cast<int32_t*>(seps_ok), width,
+      n_samples, vec_aligned(width, in, out));
+  return int(cudaGetLastError());
+}
+
+// flags, codes: (rows, width) uint8, text: (rows, width) int32 words,
+// row-major; decoded: (rows,) int32.
+int vcfc_cuda_probe_tile_text_decode(const void* flags, void* text, void* codes, void* decoded,
+                                     long long rows, int width, int n_samples, void* stream) {
+  if (bad_shape(rows, width)) return int(cudaErrorInvalidValue);
+  const auto* in = static_cast<const uint8_t*>(flags);
+  auto* words = static_cast<uint32_t*>(text);
+  auto* out = static_cast<uint8_t*>(codes);
+  tile_text_decode_kernel<<<unsigned(rows), block_threads(width), 0, cudaStream_t(stream)>>>(
+      in, words, out, static_cast<int32_t*>(decoded), width, n_samples,
+      vec_aligned(width, in, words, out));
   return int(cudaGetLastError());
 }
 

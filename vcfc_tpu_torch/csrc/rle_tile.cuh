@@ -1,9 +1,10 @@
-// Tile building blocks shared by the text kernels K3/K4 (rle_kernels.cu)
-// and the ablation probes (probe_kernels.cu): cell loads and stores, the
-// flag-byte tables, the encode scan of one tile (encode_tile), the decode
-// fill of one tile (decode_tile) and the tile encode kernel, templated on
-// the number of cells a thread owns (probe C4; at 16 cells it is the
-// design K1 had before its warp-per-row kernel).
+// Tile building blocks of the ablation probes (probe_kernels.cu): cell
+// loads and stores, the flag-byte tables, the encode scan of one tile
+// (encode_tile), the decode fill of one tile (decode_tile) and the tile
+// encode kernel, templated on the number of cells a thread owns (probe C4;
+// at 16 cells it is the design K1 had before its warp-per-row kernel).
+// The kernels K1-K4 (rle_kernels.cu) take only the constants and the
+// launch checks at the end.
 //
 // One CTA walks one row in tiles of blockDim x V cells; each thread owns V
 // consecutive cells.  A row scan is a per-thread serial scan, a
@@ -20,7 +21,7 @@
 
 namespace {
 
-constexpr int VEC = 16;  // K3/K4/C2/C3/C5 cells per thread per tile: one uint4 of bytes
+constexpr int VEC = 16;  // C2/C3/C5/C6/C7 cells per thread per tile: one uint4 of bytes
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -165,7 +166,7 @@ __device__ __forceinline__ int scan_tile(const uint8_t c[V], int prev, int p0, i
   return run_start;
 }
 
-// One tile of the encode scan (K3, C3, C4).  flags[i] = base(c) | (rem + 1) at
+// One tile of the encode scan (C3, C4, C6).  flags[i] = base(c) | (rem + 1) at
 // each segment's last cell i < n and 0 elsewhere, where d = i - run_start,
 // rem = d % 127 for code 0 and d % 31 otherwise, and a segment starts
 // where rem == 0.  count gathers the segment starts below n.  A cell is a
@@ -203,7 +204,7 @@ __device__ __forceinline__ void encode_tile(const uint8_t c[V], int prev, int ne
   }
 }
 
-// One tile of the decode fill (K4, C3, C5).  Each cell takes the next present
+// One tile of the decode fill (C3, C5, C7).  Each cell takes the next present
 // flag at or after it (0xFF past the row's last flag, like rle_decode's
 // sentinel, so such cells decode as an escape) and its code from that
 // flag's bits; sum gathers the run length of every flag below n.  The
@@ -295,7 +296,7 @@ int block_threads(int w) {
 }
 
 // Vector accesses need whole groups of V cells per row and 16-byte
-// aligned planes.
+// aligned planes (V = 16 for K1-K4).
 template <int V = VEC>
 bool vec_aligned(int w, const void* a, const void* b, const void* c = nullptr) {
   return w % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&

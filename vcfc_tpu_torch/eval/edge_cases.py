@@ -1,10 +1,11 @@
-"""Edge cases of K1's and K2's group arithmetic, as seeded numpy planes.
+"""Edge cases of the group arithmetic of K1-K4, as seeded numpy planes.
 
-K1 and K2 (``csrc/rle_kernels.cu``) give each lane groups of 16 cells and
-each warp rounds of 512; K1 seeds one remainder at a group's first cell
-and finds at most one cap wrap per group, K2 fills a group from its own
-flags or from the code carried in from its right.  These planes put run
-starts, run ends, cap wraps, escapes and flags on those edges:
+K1-K4 (``csrc/rle_kernels.cu``) give each lane groups of 16 cells and
+each warp rounds of 512; K1 and K3 seed one remainder at a group's first
+cell and find at most one cap wrap per group, K2 and K4 fill a group from
+its own flags or from the code carried in from its right, and K3 checks
+each group's separators below n - 1.  These planes put run starts, run
+ends, cap wraps, escapes, flags and bad separators on those edges:
 
 - ``encode_edge_cases``: rows of one code (0, 1 and 7: the caps 127 and
   31, and a byte past the five codes) in runs of cap - 1, cap, cap + 1
@@ -14,6 +15,9 @@ starts, run ends, cap wraps, escapes and flags on those edges:
   edges.
 - ``flag_edge_cases``: flag planes whose only flags sit on group and
   round edges, and rows with one flag each.
+- ``separator_edge_cases``: text-word planes with one separator that is
+  not a tab a row, on those edges and around n - 1; ``text_edge_cases``
+  adds the encode cases as words (``as_words``).
 
 Every plane has 256 rows, which the Pallas kernels' tile height divides
 at every width here.
@@ -119,3 +123,57 @@ def flag_edge_cases(seed: int = 7) -> list[tuple[str, np.ndarray, int]]:
         ("flags on round edges", round_edges, FLAG_SAMPLES),
         ("one flag a row on an edge", one, FLAG_SAMPLES),
     ]
+
+
+VALID_WORDS = (b"0|0\t", b"0|1\t", b"1|0\t", b"1|1\t")
+ESCAPE_WORDS = (b"./.\t", b"2|0\t", b"0/1\t", b"9|9\t", b"1|2\t", b".|.\t")
+
+
+def _as_uint32(fields) -> np.ndarray:
+    return np.array([int.from_bytes(f, "little") for f in fields], np.uint32)
+
+
+def as_words(codes: np.ndarray, n: int, seed: int = 0) -> np.ndarray:
+    """A code plane as (L, W) int32 little-endian "a|b<sep>" words: codes
+    0-3 as their genotype, any other byte (the escape 4, the non-code 7)
+    as an escape word picked from ESCAPE_WORDS, tab separators, '\\n' on
+    sample n - 1 and zero words from sample n on."""
+    rng = np.random.default_rng(seed)
+    words = _as_uint32(ESCAPE_WORDS)[rng.integers(0, len(ESCAPE_WORDS), codes.shape)]
+    ok = codes < 4
+    words[ok] = _as_uint32(VALID_WORDS)[codes[ok]]
+    if 0 < n <= codes.shape[1]:
+        words[:, n - 1] = (words[:, n - 1] & 0x00FFFFFF) | (10 << 24)
+    words[:, max(n, 0) :] = 0
+    return words.view(np.int32)
+
+
+def text_edge_cases() -> list[tuple[str, np.ndarray, int]]:
+    """(name, words (ROWS, WIDTH) int32, n_samples) for K3: every
+    encode_edge_cases plane as words, then separator_edge_cases."""
+    cases = [(f"{name}, as words", as_words(codes, n, seed), n)
+             for seed, (name, codes, n) in enumerate(encode_edge_cases())]
+    return cases + separator_edge_cases()
+
+
+def separator_edge_cases(seed: int = 8) -> list[tuple[str, np.ndarray, int]]:
+    """(name, words (ROWS, WIDTH) int32, n_samples) for K3: little-endian
+    "a|b<sep>" words of genotypes and escapes, '\\n' on sample n - 1 and
+    zero words past it, with one separator byte that is not a tab a row on
+    cell 0, a group or round edge, n - 2 (the last cell checked), n - 1 or
+    n (not checked), and none in every eighth row."""
+    rng = np.random.default_rng(seed)
+    fields = _as_uint32(VALID_WORDS + ESCAPE_WORDS[:2])
+    bad_seps = np.frombuffer(b"x\n |\x00\xff", np.uint8).astype(np.uint32)
+    cases = []
+    for n in (WIDTH, 600, 513):
+        words = fields[rng.choice(len(fields), (ROWS, WIDTH), p=[0.6, 0.1, 0.1, 0.1, 0.05, 0.05])]
+        words[:, n - 1] = (words[:, n - 1] & 0x00FFFFFF) | (10 << 24)
+        words[:, n:] = 0
+        places = [c for c in (0, *ANCHORS, n - 2, n - 1, n) if c < WIDTH]
+        for r in range(ROWS):
+            if r % 8:
+                c = places[r % len(places)]
+                words[r, c] = (words[r, c] & 0x00FFFFFF) | (rng.choice(bad_seps) << 24)
+        cases.append((f"bad separators on edges, n={n}", words.view(np.int32), n))
+    return cases

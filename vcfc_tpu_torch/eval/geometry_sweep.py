@@ -1,20 +1,23 @@
-"""K1's and K2's geometry sweep: rows a CTA x ``__launch_bounds__``
-minimum blocks.
+"""The geometry sweep of K1-K4: rows a CTA x ``__launch_bounds__`` minimum
+blocks.
 
     python -m vcfc_tpu_torch.eval.geometry_sweep        # needs a CUDA device
 
-K1 and K2 (``csrc/rle_kernels.cu``) walk each row with one warp, four rows
-a CTA, under ``__launch_bounds__(CTA_THREADS)``.  This writes a copy of the
-source and its header into a temporary directory for each pair of rows a
-CTA x minimum resident blocks a multiprocessor (which caps the registers a
-thread), with ``CTA_WARPS`` and the bounds patched, builds every copy with
-nvcc at once, holds each build's K1 and K2 to their plain versions, and
-times them on two planes: a 2,048 x 2,560 batch of a generated cohort (the
-main path's shape and data) and the ablation's 8,192 x 2,560 ``gt_codes``
-plane.  Each time is the mean of two medians (``eval.timing``), one from a
-pass over the builds in order and one from a pass in reverse.  It prints
-each build's registers, local memory and resident blocks per SM beside
-its times, then one JSON line.  The package's own build is never touched.
+K1-K4 (``csrc/rle_kernels.cu``) walk each row with one warp, four rows a
+CTA, under ``__launch_bounds__(CTA_THREADS)``: K1 and K3 are one kernel
+template, K2 and K4 the other.  This writes a copy of the source and its
+header into a temporary directory for each pair of rows a CTA x minimum
+resident blocks a multiprocessor (which caps the registers a thread), with
+``CTA_WARPS`` and the bounds patched, builds every copy with nvcc at once,
+holds each build's K1-K4 to their plain versions, and times them on two
+planes: a 2,048 x 2,560 batch of a generated cohort (the main path's shape
+and data) and the ablation's 8,192 x 2,560 ``gt_codes`` plane.  K3 and K4
+take each plane as text: its codes rendered as "a|b\t" words by K4's
+plain version (escapes as "?|?", '\n' at the last sample), and the flags
+K3 makes of them.  Each time is the mean of two medians (``eval.timing``),
+one from a pass over the builds in order and one from a pass in reverse.
+It prints each build's times, then its registers, local memory and
+resident blocks per SM, then one JSON line.  The package's own build is never touched.
 """
 
 from __future__ import annotations
@@ -33,7 +36,12 @@ import torch
 
 from ..host.parse import parse_vcf_bytes
 from ..ops import _build
-from ..ops.rle import rle_decode_plain, rle_encode_plain
+from ..ops.rle import (
+    rle_decode_plain,
+    rle_encode_plain,
+    text_rle_decode_plain,
+    text_rle_encode_plain,
+)
 from .bench_codes import gt_codes
 from .random_vcf import generate_realistic_vcf
 from .timing import median_ms, rotated
@@ -43,13 +51,22 @@ from .timing import median_ms, rotated
 GRID = [(1, 1), (1, 32), (2, 1), (2, 16), (2, 32),
         (4, 1), (4, 8), (4, 16), (8, 1), (8, 4), (8, 8)]
 COHORT_SAMPLES, WIDTH = 2504, 2560
-KERNELS = ("rle_encode", "rle_decode")
-PLAIN = {"rle_encode": rle_encode_plain, "rle_decode": rle_decode_plain}
+# in the order of vcfc_cuda_rle_kernel_info's kernels
+KERNELS = ("rle_encode", "rle_decode", "text_encode", "text_decode")
+LABELS = {"rle_encode": "K1", "rle_decode": "K2", "text_encode": "K3", "text_decode": "K4"}
+PLAIN = {"rle_encode": rle_encode_plain, "rle_decode": rle_decode_plain,
+         "text_encode": text_rle_encode_plain, "text_decode": text_rle_decode_plain}
+# each kernel's outputs in the order of its C entry point: the dtype of an
+# (L, W) plane, or None for an (L,) int32 column
+OUTPUTS = {"rle_encode": (torch.uint8, None), "rle_decode": (torch.uint8, None),
+           "text_encode": (torch.uint8, None, None),
+           "text_decode": (torch.int32, torch.uint8, None)}
 
 
 def patched_source(rows: int, blocks: int) -> str:
-    """rle_kernels.cu with CTA_WARPS = rows and K1's and K2's launch bounds
-    asking for ``blocks`` resident blocks."""
+    """rle_kernels.cu with CTA_WARPS = rows and the launch bounds of the
+    encode and decode kernels (K1/K3, K2/K4) asking for ``blocks`` resident
+    blocks."""
     src = (_build.CSRC / "rle_kernels.cu").read_text()
     edits = {"constexpr int CTA_WARPS = 4;": (1, f"constexpr int CTA_WARPS = {rows};"),
              "__launch_bounds__(CTA_THREADS)": (2, f"__launch_bounds__(CTA_THREADS, {blocks})")}
@@ -77,28 +94,28 @@ def _build_copy(geometry, tmp: Path) -> Path:
 
 
 class Build:
-    """K1 and K2 of one patched build, loaded with ctypes."""
+    """K1-K4 of one patched build, loaded with ctypes."""
 
     def __init__(self, path: Path):
         self.lib = ctypes.CDLL(str(path))
         for kernel in KERNELS:
             fn = getattr(self.lib, f"vcfc_cuda_{kernel}")
-            fn.argtypes = [*[ctypes.c_void_p] * 3, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [*[ctypes.c_void_p] * (1 + len(OUTPUTS[kernel])), ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         self.lib.vcfc_cuda_rle_kernel_info.argtypes = [ctypes.c_int,
                                                        *[ctypes.POINTER(ctypes.c_int)] * 3]
         self.lib.vcfc_cuda_rle_kernel_info.restype = ctypes.c_int
 
     def launch(self, kernel: str, x: torch.Tensor, n: int):
-        out = torch.empty_like(x)
-        per_row = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+        outs = [torch.empty(x.shape if dtype else x.shape[:1], dtype=dtype or torch.int32,
+                            device=x.device) for dtype in OUTPUTS[kernel]]
         err = getattr(self.lib, f"vcfc_cuda_{kernel}")(
-            x.data_ptr(), out.data_ptr(), per_row.data_ptr(), x.shape[0], x.shape[1], n,
+            x.data_ptr(), *(out.data_ptr() for out in outs), x.shape[0], x.shape[1], n,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"geometry_sweep: {kernel} launch failed: cudaError {err}")
-        return out, per_row
+        return tuple(outs)
 
     def info(self, kernel: str) -> dict:
         values = [ctypes.c_int() for _ in range(3)]
@@ -121,8 +138,8 @@ def planes() -> dict:
 
 def run() -> dict:
     """Build, check and time every geometry; returns {"device", "builds":
-    [{"rows_per_cta", "min_blocks", "rle_encode": info, "rle_decode": info}],
-    "ms": {plane: {"rows,blocks": {"rle_encode": ms, "rle_decode": ms}}}}."""
+    [{"rows_per_cta", "min_blocks", kernel: info for each of KERNELS}],
+    "ms": {plane: {"rows,blocks": {kernel: ms for each of KERNELS}}}}."""
     with tempfile.TemporaryDirectory(prefix="geometry_sweep-") as tmp:
         t = time.perf_counter()
         with ThreadPoolExecutor(len(GRID)) as pool:
@@ -135,7 +152,9 @@ def run() -> dict:
     ms = {}
     for plane, (codes_np, n) in planes().items():
         codes = torch.from_numpy(codes_np).cuda()
-        inputs = {"rle_encode": codes, "rle_decode": rle_encode_plain(codes, n)[0]}
+        flags = rle_encode_plain(codes, n)[0]
+        inputs = {"rle_encode": codes, "rle_decode": flags,
+                  "text_encode": text_rle_decode_plain(flags, n)[0], "text_decode": flags}
         for geometry in GRID:
             for name, x in inputs.items():
                 got, want = builds[geometry].launch(name, x, n), PLAIN[name](x, n)
@@ -157,18 +176,20 @@ def run() -> dict:
 
 
 def table(result: dict) -> list[str]:
-    lines = [f"geometry sweep on {result['device']}, one warp a row (K1 | K2 ms; registers, "
-             "local bytes, blocks per SM)"]
-    planes_ = list(result["ms"])
-    lines.append("  rows/CTA min blocks  " + "  ".join(f"{p:>28s}" for p in planes_)
-                 + "   K1 attrs        K2 attrs")
+    lines = [f"geometry sweep on {result['device']}, one warp a row: ms a launch"]
+    head = "".join(f"{LABELS[k]:>10s}" for k in KERNELS)
+    for plane, ms in result["ms"].items():
+        lines.append(f"  {plane}: rows/CTA min blocks{head}")
+        for build in result["builds"]:
+            key = f"{build['rows_per_cta']},{build['min_blocks']}"
+            lines.append(f"  {build['rows_per_cta']:8d} {build['min_blocks']:10d}"
+                         + "".join(f"{ms[key][k]:10.5f}" for k in KERNELS))
+    lines.append("  registers/local bytes/blocks per SM: rows/CTA min blocks"
+                 + "".join(f"{LABELS[k]:>12s}" for k in KERNELS))
     for build in result["builds"]:
-        key = f"{build['rows_per_cta']},{build['min_blocks']}"
-        times = "  ".join(f"{result['ms'][p][key]['rle_encode']:13.5f} "
-                          f"{result['ms'][p][key]['rle_decode']:14.5f}" for p in planes_)
-        attrs = "  ".join(f"{build[k]['registers']:3d} {build[k]['local_bytes']:4d} "
-                          f"{build[k]['blocks_per_sm']:3d}" for k in KERNELS)
-        lines.append(f"  {build['rows_per_cta']:8d} {build['min_blocks']:10d}  {times}   {attrs}")
+        attrs = "".join(f"{build[k]['registers']}/{build[k]['local_bytes']}/"
+                        f"{build[k]['blocks_per_sm']}".rjust(12) for k in KERNELS)
+        lines.append(f"  {build['rows_per_cta']:8d} {build['min_blocks']:10d}{attrs}")
     return lines
 
 

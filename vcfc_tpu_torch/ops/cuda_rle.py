@@ -6,13 +6,15 @@ launches K1 (which replaces ``_encode_kernel``), ``cuda_rle_decode`` K2
 (``_decode_kernel``), ``cuda_text_encode`` K3 (``_text_encode_kernel``)
 and ``cuda_text_decode`` K4 (``_text_decode_kernel``).  The probes replace
 the Pallas kernels of ``scripts/kernel_ceiling.py`` and
-``scripts/swar_probe.py`` and keep K1's and K2's earlier tile design
+``scripts/swar_probe.py`` and keep the earlier tile design of K1-K4
 measurable: ``cuda_probe_scan_only`` (C1, the tile encode's scan alone),
 ``cuda_probe_scan_replaced`` (C2, the tile encode without its scan),
 ``cuda_probe_roundtrip`` (C3, the tile encode then the tile decode with
 the flags kept on chip), ``cuda_probe_blocked_encode`` (C4, the tile
-encode at 1 to 16 cells a thread) and ``cuda_probe_tile_decode`` (C5, the
-tile decode).  Each
+encode at 1 to 16 cells a thread), ``cuda_probe_tile_decode`` (C5, the
+tile decode), ``cuda_probe_tile_text_encode`` (C6, the tile classify and
+encode) and ``cuda_probe_tile_text_decode`` (C7, the tile decode and
+render).  Each
 takes CUDA tensors only, allocates its outputs with ``torch.empty``,
 launches on the current stream without synchronising, and raises when the
 launch is refused.
@@ -33,7 +35,8 @@ from . import _build
 LAUNCHES = {
     "rle_encode": 0, "rle_decode": 0, "text_encode": 0, "text_decode": 0,
     "probe_scan_only": 0, "probe_scan_replaced": 0, "probe_roundtrip": 0,
-    "probe_blocked_encode": 0, "probe_tile_decode": 0,
+    "probe_blocked_encode": 0, "probe_tile_decode": 0, "probe_tile_text_encode": 0,
+    "probe_tile_text_decode": 0,
 }
 PROBE_CELLS = (1, 2, 4, 8, 16)  # the cells a thread owns in C1 and C4
 
@@ -50,9 +53,11 @@ _KERNELS = {
     "probe_roundtrip": ("probe_kernels", (torch.uint8,), 1, False),
     "probe_blocked_encode": ("probe_kernels", (torch.uint8,), 1, True),
     "probe_tile_decode": ("probe_kernels", (torch.uint8,), 1, False),
+    "probe_tile_text_encode": ("probe_kernels", (torch.uint8,), 2, False),
+    "probe_tile_text_decode": ("probe_kernels", (torch.int32, torch.uint8), 1, False),
 }
 # vcfc_cuda_rle_kernel_info's kernel argument
-_INFO_KERNELS = {"rle_encode": 0, "rle_decode": 1}
+_INFO_KERNELS = {"rle_encode": 0, "rle_decode": 1, "text_encode": 2, "text_decode": 3}
 
 
 @functools.cache
@@ -128,9 +133,9 @@ def cuda_rle_decode(flagpos: torch.Tensor, n_samples: int):
 
 
 def kernel_info(kernel: str) -> dict:
-    """K1's or K2's ("rle_encode" or "rle_decode") registers a thread, local
-    memory bytes a thread and resident blocks per SM on the current
-    device."""
+    """The registers a thread, local memory bytes a thread and resident
+    blocks per SM on the current device of K1, K2, K3 or K4 ("rle_encode",
+    "rle_decode", "text_encode" or "text_decode")."""
     lib = _lib("rle_kernels")
     values = [ctypes.c_int() for _ in range(3)]
     err = lib.vcfc_cuda_rle_kernel_info(_INFO_KERNELS[kernel], *map(ctypes.byref, values))
@@ -201,3 +206,18 @@ def cuda_probe_tile_decode(flagpos: torch.Tensor, n_samples: int):
     S_pad) uint8, decoded (L,) int32), K2's outputs."""
     _check_plane(flagpos, "probe_tile_decode")
     return _launch("probe_tile_decode", flagpos, n_samples)
+
+
+def cuda_probe_tile_text_encode(text: torch.Tensor, n_samples: int):
+    """C6: K3's earlier tile design: (L, S_pad) int32 words -> (flagpos (L,
+    S_pad) uint8, nseg (L,) int32, seps_ok (L,) int32), K3's outputs."""
+    _check_plane(text, "probe_tile_text_encode", torch.int32)
+    return _launch("probe_tile_text_encode", text, n_samples)
+
+
+def cuda_probe_tile_text_decode(flagpos: torch.Tensor, n_samples: int):
+    """C7: K4's earlier tile design: (L, S_pad) uint8 flags -> (text (L,
+    S_pad) int32 words, codes (L, S_pad) uint8, decoded (L,) int32), K4's
+    outputs."""
+    _check_plane(flagpos, "probe_tile_text_decode")
+    return _launch("probe_tile_text_decode", flagpos, n_samples)

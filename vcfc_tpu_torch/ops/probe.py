@@ -1,12 +1,13 @@
-"""Ablation probes of the RLE kernels K1/K2, in PyTorch.
+"""Ablation probes of the RLE kernels K1-K4, in PyTorch.
 
 The port of the Pallas probe kernels of ``scripts/kernel_ceiling.py``
 (P1: ``enc_scan_only``, ``enc_noscan``, ``rt_kernel``) and
 ``scripts/swar_probe.py`` (P2: the full encode over a blocked scan, and the
 scan alone).  Each keeps part of K1's or K2's work, so that timing it
-beside them splits where their time goes; C5, K2's earlier tile design,
-has K2's plain version.  The plain versions here are the spec that the
-CUDA probes of ``cuda_rle`` (C1-C5) are held to; the public
+beside them splits where their time goes; C5, C6 and C7, the earlier tile
+designs of K2, K3 and K4, have those kernels' plain versions.  The plain
+versions here are the spec that the CUDA probes of ``cuda_rle`` (C1-C7)
+are held to; the public
 ``probe_*`` functions dispatch on the tensor's device: a CPU tensor gets
 the plain version, a CUDA tensor the kernel.
 """
@@ -25,8 +26,18 @@ from .cuda_rle import (
     cuda_probe_scan_only,
     cuda_probe_scan_replaced,
     cuda_probe_tile_decode,
+    cuda_probe_tile_text_decode,
+    cuda_probe_tile_text_encode,
 )
-from .rle import _columns, _dispatch, _flag_base, rle_decode_plain, rle_encode_plain
+from .rle import (
+    _columns,
+    _dispatch,
+    _flag_base,
+    rle_decode_plain,
+    rle_encode_plain,
+    text_rle_decode_plain,
+    text_rle_encode_plain,
+)
 
 
 def _new_run(c: torch.Tensor) -> torch.Tensor:
@@ -96,3 +107,16 @@ def probe_tile_decode(flagpos: torch.Tensor, n_samples: int):
     """C5 on a CUDA tensor (K2's earlier tile design); on a CPU tensor
     ``rle_decode_plain``, whose outputs C5 gives."""
     return _dispatch(flagpos, rle_decode_plain, cuda_probe_tile_decode)(flagpos, n_samples)
+
+
+def probe_tile_text_encode(text: torch.Tensor, n_samples: int):
+    """C6 on a CUDA tensor (K3's earlier tile design); on a CPU tensor
+    ``text_rle_encode_plain``, whose outputs C6 gives."""
+    return _dispatch(text, text_rle_encode_plain, cuda_probe_tile_text_encode)(text, n_samples)
+
+
+def probe_tile_text_decode(flagpos: torch.Tensor, n_samples: int):
+    """C7 on a CUDA tensor (K4's earlier tile design); on a CPU tensor
+    ``text_rle_decode_plain``, whose outputs C7 gives."""
+    return _dispatch(flagpos, text_rle_decode_plain, cuda_probe_tile_text_decode)(
+        flagpos, n_samples)
