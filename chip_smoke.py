@@ -17,13 +17,21 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      K4, C6 and C7, with bad separators on those edges); C1 and C4 at every
      cells a thread, C4 against K1's outputs and C5 against K2's too, C6
      and C7 on K3's and K4's cases
-  3. the routes of the main path on the cohort: the parse route (K1/K2),
-     the VCFC_PARSE=device text route (K3/K4) and the VCFC_UNPACK=device
+  3. the routes of the main path on the cohort, each call REPEATS times
+     (median and min-max printed): the parse route (K1/K2), the
+     VCFC_PARSE=device text route (K3/K4) and the VCFC_UNPACK=device
      decompress route (packed flags unpacked on the card, then K2); each
      route's compress bytes equal to the native host executor's, its
-     decompress restoring the input, and a CLI compress/decompress round
-     trip of each route in a temporary directory
-  4. each route's kernels' launch counts from its own phase 3 run above zero
+     decompress restoring the input, in every run, and a CLI
+     compress/decompress round trip of each route in a temporary directory
+  3b. the sharded path: engine.compress_sharded / decompress_sharded on
+     the cohort over make_data_mesh() (every card) and over two shards on
+     cuda:0, bytes equal to the native host executor's and compress's and
+     the input restored; dryrun_multichip over both meshes; a CLI
+     VCFC_SHARDED=1 round trip; and the encode, codebook and roundtrip
+     steps' histograms against the plain CPU histograms of a cohort batch
+  4. each path's kernels' launch counts from its own run (phase 3's
+     routes, phase 3b's codec and dry run) above zero
   5. each kernel's time and its plain version's (CUDA events, median,
      inputs read from HBM) beside its bound (the bytes it must move at the
      card's memory rate) and its plain-op line (its plain version's
@@ -32,13 +40,17 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      device copy of their input plane, with their registers, local memory
      and resident blocks; and the end-to-end seconds of the routes
   6. where the time goes, per route: host-clock seconds per layer from
-     phase 3's calls, and device busy time from torch.profiler events on
-     the CUDA device only
+     phase 3's median run, and device busy time from torch.profiler events
+     on the CUDA device only (with the batches overlapped, a device
+     layer's host clock holds its staging and its waits on the card; the
+     device busy time is the yardstick); then each call in turns with the
+     engine's staging slots and with one slot, the control of the overlap
   7. the K1/K2 ablation (vcfc_tpu_torch.eval.kernel_ceiling) at 8192 x
      2560, K1 and K2 again in turns with C4 and C5, its probes' launch
      counts from that run above zero, and its table
-  8. one "kernels" JSON line (launches, mismatches, times, bounds), then a
-     last line {"ok": true, "device": {...}}
+  8. one "kernels" JSON line (launches summed over the paths and by path,
+     mismatches, times, bounds), then a last line
+     {"ok": true, "device": {...}}
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import contextlib
 import functools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -89,12 +102,20 @@ from vcfc_tpu_torch.ops.cuda_rle import (
     cuda_text_encode,
     kernel_info,
 )
+from vcfc_tpu_torch.ops.histogram import ctx_flag_histogram, masked_code_histogram
 from vcfc_tpu_torch.ops.probe import roundtrip_plain, scan_only_plain, scan_replaced_plain
 from vcfc_tpu_torch.ops.rle import (
     rle_decode_plain,
     rle_encode_plain,
     text_rle_decode_plain,
     text_rle_encode_plain,
+)
+from vcfc_tpu_torch.parallel.dryrun import dryrun_multichip
+from vcfc_tpu_torch.parallel.mesh import make_data_mesh
+from vcfc_tpu_torch.parallel.shard import (
+    make_sharded_codebook_step,
+    make_sharded_encode_step,
+    make_sharded_roundtrip_step,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -103,6 +124,9 @@ SAMPLES = 2504
 LINES = 65536
 SEED = 5
 CLI_LINES = 8192  # the CLI round trips run on this prefix of the cohort
+REPEATS = 5  # phase 3 runs each route's calls this many times
+SHARDED_REPEATS = 3  # phase 3b runs the sharded codec this many times a mesh
+CONTROL_TURNS = 3  # phase 6 runs each call this many times with and without overlap
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 TIMED_SHAPE = (2048, 2560)  # one engine batch of the cohort
 SOURCE = "vcfc_tpu_torch/csrc/rle_kernels.cu"
@@ -194,38 +218,59 @@ PLAIN_OPS = {  # name -> the plain version's operations per cell
     "probe_tile_text_encode": 59,
     "probe_tile_text_decode": 37,
 }
-ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK")
+ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK", "VCFC_SHARDED")
 # route -> its environment, its kernels, host-clock layers per engine call
-# (None: the call is the parse route's, which the route does not change)
+# (None: the call is the parse route's, which the route does not change).
+# A device layer's clock runs from its first staged batch to its last
+# fetched one: with the batches overlapped, it holds the host's staging
+# (timed on its own too; the text route's holds the gathers), its copies
+# out of the pinned buffers and its waits on the card.
+STAGING = (engine, "_stage")  # fills a batch's staging buffers, inside a device layer
 ROUTES = {
     "parse route": ({}, ("rle_encode", "rle_decode"), {
         "compress": {"parse": (engine, "parse_vcf_bytes"),
                      "device layer": (engine, "encode_on_device"),
+                     "staging in it": STAGING,
                      "assembly": (fast, "assemble_vcfc_native")},
         "decompress": {"parse": (fast, "parse_vcfc_native"),
                        "device layer": (engine, "decode_on_device"),
+                       "staging in it": STAGING,
                        "render": (fast, "assemble_vcf_native")}}),
     "text route": ({"VCFC_PARSE": "device"}, ("text_encode", "text_decode"), {
         "compress": {"index": (native, "index_lines"),
-                     "gather": (native, "gather_text"),
                      "device layer": (engine, "encode_text_on_device"),
+                     "staging in it": STAGING,
+                     "gather in the staging": (native, "gather_text"),
                      "assembly": (fast, "assemble_vcfc_native")},
         "decompress": {"parse": (fast, "parse_vcfc_native"),
                        "device layer": (engine, "decode_text_on_device"),
+                       "staging in it": STAGING,
                        "render from text": (fast, "assemble_vcf_from_text")}}),
     "unpack route": ({"VCFC_UNPACK": "device"}, ("rle_decode",), {
         "compress": None,
         "decompress": {"packed parse": (fast, "parse_vcfc_packed_native"),
                        "device layer": (engine, "unpack_decode_on_device"),
+                       "staging in it": STAGING,
                        "render": (fast, "assemble_vcf_native")}}),
 }
+
+# The sharded path (phase 3b): its meshes, and its kernels (K1 and K2 in
+# the codec, K1-K4 in the dry run).
+SHARDED_KERNELS = ("rle_encode", "rle_decode", "text_encode", "text_decode")
+
+
+def sharded_meshes():
+    """name -> mesh: every visible card, and two shards on the first."""
+    return {"make_data_mesh()": make_data_mesh(),
+            "two shards on cuda:0": make_data_mesh(devices=("cuda:0",) * 2)}
 
 
 def phase1_build():
     card = subprocess.run(CARD_QUERY, check=True, capture_output=True, text=True)
     print(card.stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} intra-op threads, "
+          f"{os.cpu_count()} CPUs")
     t = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
         paths = list(pool.map(build, ("rle_kernels", "probe_kernels")))
@@ -487,7 +532,7 @@ def layer_clock(layers):
             setattr(mod, attr, saved[name])
 
 
-def _cli_round_trip(prefix: bytes, route_vars: dict):
+def _cli_round_trip(prefix: bytes, route_vars: dict, phase: str = "phase 3"):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]))
     for var in ROUTE_ENV:
@@ -501,57 +546,88 @@ def _cli_round_trip(prefix: bytes, route_vars: dict):
             r = subprocess.run([sys.executable, "-m", "vcfc_tpu_torch", verb, a, b],
                                cwd=tmp, env=env, capture_output=True, text=True)
             if r.returncode:
-                raise SystemExit(f"phase 3: CLI {verb} failed ({r.returncode}):\n{r.stderr}")
+                raise SystemExit(f"{phase}: CLI {verb} failed ({r.returncode}):\n{r.stderr}")
         with open(mid, "rb") as f:
             cli_vcfc = f.read()
         with open(out, "rb") as f:
             return cli_vcfc, f.read()
 
 
-def phase3_main_path(vcf: bytes):
-    """Each route once on the cohort, the counts set to 0 just before it
-    and read just after; returns {route: its run}.  A route whose compress
-    is the parse route's decompresses the parse route's bytes."""
-    reference = host_reference(vcf)
+def cli_prefix(vcf: bytes) -> bytes:
+    """The header and the first CLI_LINES lines of the cohort."""
     cut = vcf.index(b"\n", vcf.index(b"\n#CHROM") + 1) + 1  # end of the header
     for _ in range(CLI_LINES):
         cut = vcf.index(b"\n", cut) + 1
-    prefix = vcf[:cut]
+    return vcf[:cut]
+
+
+def spread(seconds) -> str:
+    """'median s (min-max s, n runs)' of a list of seconds."""
+    return (f"median {statistics.median(seconds):.3f} s ({min(seconds):.3f}-"
+            f"{max(seconds):.3f} s, {len(seconds)} runs)")
+
+
+def _timed_runs(call, layers, check):
+    """REPEATS calls of call(), each checked by check(result) and timed on
+    the host clock with its layers; returns (the first result, [seconds],
+    the layers of the median run)."""
+    seconds, split, first = [], [], None
+    for _ in range(REPEATS):
+        with layer_clock(layers) as clock:
+            t = time.perf_counter()
+            out = call()
+            seconds.append(time.perf_counter() - t)
+        check(out)
+        split.append(clock)
+        first = out if first is None else first
+        del out
+    median_run = sorted(range(REPEATS), key=seconds.__getitem__)[REPEATS // 2]
+    return first, seconds, split[median_run]
+
+
+def phase3_main_path(vcf: bytes, reference: bytes, prefix: bytes):
+    """Each route REPEATS times on the cohort, the counts set to 0 just
+    before the route and read just after; returns {route: its runs}.  A
+    route whose compress is the parse route's decompresses the parse
+    route's bytes."""
     prefix_reference = host_reference(prefix)
     runs = {}
     for route, (env, _kernels, layers) in ROUTES.items():
+
+        def check_vcfc(vcfc):
+            if vcfc != reference:
+                raise SystemExit(f"phase 3: {route}: compress bytes differ from the native "
+                                 "host executor's")
+
+        def check_back(back):
+            if back != vcf:
+                raise SystemExit(f"phase 3: {route}: decompress does not restore the input")
+
         with route_env(env):
             for name in LAUNCHES:
                 LAUNCHES[name] = 0
             if layers["compress"] is None:
                 vcfc, compress_s, compress_layers = runs["parse route"]["vcfc"], None, None
             else:
-                with layer_clock(layers["compress"]) as compress_layers:
-                    t = time.perf_counter()
-                    vcfc = engine.compress(vcf)
-                    compress_s = time.perf_counter() - t
-            with layer_clock(layers["decompress"]) as decompress_layers, \
-                    batch_shapes(engine, "unpack_rle_decode") as packed_batches:
-                t = time.perf_counter()
-                back = engine.decompress(vcfc)
-                decompress_s = time.perf_counter() - t
+                vcfc, compress_s, compress_layers = _timed_runs(
+                    lambda: engine.compress(vcf), layers["compress"], check_vcfc)
+            with batch_shapes(engine, "unpack_rle_decode") as packed_batches:
+                _back, decompress_s, decompress_layers = _timed_runs(
+                    lambda: engine.decompress(vcfc), layers["decompress"], check_back)
+            del _back
             counts = dict(LAUNCHES)
-        shown = "the parse route's" if compress_s is None else f"{compress_s:.3f} s ->"
+        shown = "the parse route's" if compress_s is None else f"{spread(compress_s)} ->"
         print(f"phase 3: {route}: compress {shown} {len(vcfc):,} bytes; "
-              f"decompress {decompress_s:.3f} s; launches {counts}")
-        if vcfc != reference:
-            raise SystemExit(f"phase 3: {route}: compress bytes differ from the native "
-                             "host executor's")
-        if back != vcf:
-            raise SystemExit(f"phase 3: {route}: decompress does not restore the input")
+              f"decompress {spread(decompress_s)}; launches over the runs {counts}")
         print(f"phase 3: {route}: compress == native host executor bytes; "
-              "decompress restores the input")
+              f"decompress restores the input, in every run")
         if packed_batches:
             rows, m = packed_batches[0]
             s_pad = -(-SAMPLES // 128) * 128
+            batches = len(packed_batches) // REPEATS
             print(f"phase 3: {route}: packed width M = {m} against S_pad = {s_pad}; H2D per "
                   f"batch of {rows} lines {rows * (m + 4):,} bytes (flags + counts) against "
-                  f"{rows * s_pad:,} for the positional plane ({len(packed_batches)} batches)")
+                  f"{rows * s_pad:,} for the positional plane ({batches} batches a call)")
         cli_vcfc, cli_back = _cli_round_trip(prefix, env)
         if cli_vcfc != prefix_reference or cli_back != prefix:
             raise SystemExit(f"phase 3: {route}: CLI round trip differs")
@@ -560,6 +636,79 @@ def phase3_main_path(vcf: bytes):
                        "counts": counts, "layers": {"compress": compress_layers,
                                                     "decompress": decompress_layers}}
     return runs
+
+
+def _check_step_histograms(name, mesh, codes):
+    """Each shard step's histograms on the mesh against the plain CPU
+    histograms of the same batch, exact."""
+    n = SAMPLES
+    x = torch.from_numpy(codes)
+    want_hist = masked_code_histogram(x, n)
+    flags = rle_encode_plain(x, n)[0]
+    want_ctx = ctx_flag_histogram(flags, n)
+    _f, _k, hist, offsets = make_sharded_encode_step(mesh, codes.shape[1])(codes, n)
+    _f2, nseg, ctx_hist = make_sharded_codebook_step(mesh)(codes, n)
+    _c, n_ok, hist2 = make_sharded_roundtrip_step(mesh)(codes, n)
+    bad = [what for what, ok in (
+        ("encode step histogram", torch.equal(hist, want_hist)),
+        ("codebook step context histogram", torch.equal(ctx_hist, want_ctx)),
+        ("roundtrip step histogram", torch.equal(hist2, want_hist)),
+        ("roundtrip n_ok", int(n_ok) == len(mesh)),
+        ("context histogram total", int(ctx_hist.sum()) == int(nseg.sum())),
+        ("monotone offsets", bool((offsets.diff() >= 0).all()))) if not ok]
+    if bad:
+        raise SystemExit(f"phase 3b: {name}: {', '.join(bad)} disagree")
+    print(f"phase 3b: {name}: the encode, codebook and roundtrip steps' histograms equal the "
+          f"plain CPU histograms of a {codes.shape[0]}x{codes.shape[1]} cohort batch; "
+          f"n_ok {int(n_ok)}, offsets {offsets.tolist()}")
+
+
+def phase3b_sharded(vcf: bytes, reference: bytes, prefix: bytes, parse_vcfc: bytes):
+    """The sharded path on the cohort over each mesh of sharded_meshes(),
+    then the dry run, the counts set to 0 just before and read just after;
+    then a CLI VCFC_SHARDED=1 round trip and the steps' histograms.
+    Returns (the counts, {mesh: {compress_s, decompress_s}})."""
+    meshes = sharded_meshes()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    times = {}
+    for name, mesh in meshes.items():
+        compress_s, decompress_s = [], []
+        for _ in range(SHARDED_REPEATS):
+            t = time.perf_counter()
+            vcfc = engine.compress_sharded(vcf, mesh)
+            compress_s.append(time.perf_counter() - t)
+            if vcfc != reference or vcfc != parse_vcfc:
+                raise SystemExit(f"phase 3b: {name}: compress_sharded bytes differ from the "
+                                 "native host executor's or compress's")
+            t = time.perf_counter()
+            back = engine.decompress_sharded(vcfc, mesh)
+            decompress_s.append(time.perf_counter() - t)
+            if back != vcf:
+                raise SystemExit(f"phase 3b: {name}: decompress_sharded does not restore the "
+                                 "input")
+            del vcfc, back
+        times[name] = {"shards": len(mesh), "compress_s": compress_s,
+                       "decompress_s": decompress_s}
+        print(f"phase 3b: {name} ({len(mesh)} shards on {', '.join(map(str, mesh))}): "
+              f"compress_sharded {spread(compress_s)}, decompress_sharded "
+              f"{spread(decompress_s)}; bytes == native host executor's and compress's, the "
+              f"input restored, in every run")
+    for name, mesh in meshes.items():
+        dryrun_multichip(len(mesh), devices=mesh)
+        print(f"phase 3b: dryrun_multichip({len(mesh)}) over {name}: ok")
+    counts = dict(LAUNCHES)
+    print(f"phase 3b: launches over the sharded path {counts}")
+    cli_vcfc, cli_back = _cli_round_trip(prefix, {"VCFC_SHARDED": "1"}, "phase 3b")
+    if cli_vcfc != host_reference(prefix) or cli_back != prefix:
+        raise SystemExit("phase 3b: CLI VCFC_SHARDED=1 round trip differs")
+    print(f"phase 3b: CLI VCFC_SHARDED=1 compress/decompress round trip ok ({CLI_LINES} lines)")
+    codes = np.zeros((2048, 2560), np.uint8)
+    codes[:, :SAMPLES] = parse_vcf_bytes(prefix).codes[:2048]
+    codes[-5:] = 0  # zero-padded rows, as a short last chunk has
+    for name, mesh in meshes.items():
+        _check_step_histograms(name, mesh, codes)
+    return counts, times
 
 
 def int32_ops_per_s() -> float:
@@ -695,9 +844,11 @@ def phase6_breakdown(vcf: bytes, runs):
             if not all(seconds.values()):
                 raise SystemExit(f"phase 6: {route} {call} did not go through every layer: "
                                  f"{seconds}")
-            print(f"phase 6: {route} {call} host clock (phase 3's run, "
-                  f"{run[call + '_s']:.3f} s): "
-                  + ", ".join(f"{layer} {s:.3f} s" for layer, s in seconds.items()))
+            print(f"phase 6: {route} {call} host clock (phase 3's median run, "
+                  f"{statistics.median(run[call + '_s']):.3f} s): "
+                  + ", ".join(f"{layer} {s:.3f} s" for layer, s in seconds.items())
+                  + " (a device layer's clock holds its staging, its copies out of the "
+                  "pinned buffers and its waits on the card)")
         calls = [("decompress", lambda: engine.decompress(run["vcfc"]))]
         if run["compress_s"] is not None:
             calls.insert(0, ("compress", lambda: engine.compress(vcf)))
@@ -710,6 +861,45 @@ def phase6_breakdown(vcf: bytes, runs):
                 print(f"phase 6: {route} {call} profiled wall {wall:.3f} ms, device busy "
                       f"{busy:.3f} ms, device idle share {1 - busy / wall:.4f}; "
                       + ", ".join(f"{kind} {ms:.3f} ms" for kind, ms in kinds.items()))
+
+
+def phase6_overlap_control(vcf: bytes, runs):
+    """The control of the batch pipeline's overlap: each route's calls in
+    turns with engine._SLOTS staging slots and with one, which keeps the
+    pinned buffers and the streams but stages a batch only once the one
+    before it is fetched, so nothing overlaps.  Prints the medians of the
+    call and of its device layer on the host clock; every run's output is
+    checked."""
+    overlapped = engine._SLOTS
+    for route, run in runs.items():
+        env, _kernels, layers = ROUTES[route]
+        calls = [("decompress", lambda: engine.decompress(run["vcfc"]), vcf)]
+        if run["compress_s"] is not None:
+            calls.insert(0, ("compress", lambda: engine.compress(vcf), run["vcfc"]))
+        with route_env(env):
+            for call, fn, want in calls:
+                device_layer = {"device layer": layers[call]["device layer"]}
+                times = {overlapped: ([], []), 1: ([], [])}  # slots -> (call s, layer s)
+                try:
+                    for _ in range(CONTROL_TURNS):
+                        for slots, (call_s, layer_s) in times.items():
+                            engine._SLOTS = slots
+                            with layer_clock(device_layer) as clock:
+                                t = time.perf_counter()
+                                out = fn()
+                                call_s.append(time.perf_counter() - t)
+                            if out != want:
+                                raise SystemExit(f"phase 6: {route} {call} with {slots} staging "
+                                                 "slots: output differs")
+                            layer_s.append(clock["device layer"])
+                            del out
+                finally:
+                    engine._SLOTS = overlapped
+                print(f"phase 6: {route} {call} overlap control ({CONTROL_TURNS} runs each, "
+                      "in turns): " + "; ".join(
+                          f"{slots} staging slot{'s' * (slots > 1)}: call {spread(call_s)}, "
+                          f"device layer median {statistics.median(layer_s):.3f} s"
+                          for slots, (call_s, layer_s) in times.items()))
 
 
 def phase7_ablation(stats, int_rate):
@@ -762,34 +952,52 @@ def main() -> int:
     vcf = phase1_build()
     rng = np.random.default_rng(SEED)
     stats = phase2_kernels(rng, vcf)
-    runs = phase3_main_path(vcf)
+    reference = host_reference(vcf)
+    prefix = cli_prefix(vcf)
+    runs = phase3_main_path(vcf, reference, prefix)
+    sharded_counts, sharded_times = phase3b_sharded(vcf, reference, prefix,
+                                                    runs["parse route"]["vcfc"])
 
-    launches = {}  # a kernel on several routes reports its first route's count
-    for route, (_env, kernels, _layers) in ROUTES.items():
-        counts = runs[route]["counts"]
+    # path -> (its counts, the kernels it must launch)
+    paths = {route: (runs[route]["counts"], kernels)
+             for route, (_env, kernels, _layers) in ROUTES.items()}
+    paths["sharded path"] = (sharded_counts, SHARDED_KERNELS)
+    launches_by_path = {}  # kernel -> {path: launches}
+    for path, (counts, kernels) in paths.items():
         if not all(counts[name] > 0 for name in kernels):
-            raise SystemExit(f"phase 4: a kernel did not run on the {route}: {counts}")
-        print(f"phase 4: {route}: " + ", ".join(f"{name} {counts[name]}" for name in kernels))
+            raise SystemExit(f"phase 4: a kernel did not run on the {path}: {counts}")
+        print(f"phase 4: {path}: " + ", ".join(f"{name} {counts[name]}" for name in kernels))
         for name in kernels:
-            launches.setdefault(name, counts[name])
-    print(f"phase 4: every kernel launched on its route: {launches}")
+            launches_by_path.setdefault(name, {})[path] = counts[name]
+    launches = {name: sum(by_path.values()) for name, by_path in launches_by_path.items()}
+    print(f"phase 4: every kernel launched on each of its paths; totals {launches}")
 
     int_rate = int32_ops_per_s()
     kernel_rows = phase5_times(vcf, stats, launches, int_rate)
+    for row in kernel_rows:
+        row["launches_by_path"] = launches_by_path.get(row["name"], {})
     text_bytes = SAMPLES * LINES * 4  # "a|b\t" per genotype cell
 
+    def median(seconds):
+        return None if seconds is None else statistics.median(seconds)
+
     def rate(seconds):
-        return None if seconds is None else text_bytes / seconds / 1e9
+        return None if seconds is None else text_bytes / median(seconds) / 1e9
 
     print(json.dumps({"e2e": {
         "samples": SAMPLES, "lines": LINES, "vcf_bytes": len(vcf),
         "genotype_text_bytes": text_bytes, "routes": {
-            route: {"vcfc_bytes": len(run["vcfc"]), "compress_s": run["compress_s"],
-                    "decompress_s": run["decompress_s"],
+            route: {"vcfc_bytes": len(run["vcfc"]), "compress_s": median(run["compress_s"]),
+                    "decompress_s": median(run["decompress_s"]),
+                    "compress_runs_s": run["compress_s"], "decompress_runs_s": run["decompress_s"],
                     "compress_genotype_GB_per_s": rate(run["compress_s"]),
                     "decompress_genotype_GB_per_s": rate(run["decompress_s"])}
-            for route, run in runs.items()}}}))
+            for route, run in runs.items()},
+        "sharded": {name: {**t, "compress_median_s": median(t["compress_s"]),
+                           "decompress_median_s": median(t["decompress_s"])}
+                    for name, t in sharded_times.items()}}}))
     phase6_breakdown(vcf, runs)
+    phase6_overlap_control(vcf, runs)
     kernel_rows += phase7_ablation(stats, int_rate)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - wall:.1f} s")
     print(json.dumps({"kernels": kernel_rows}))

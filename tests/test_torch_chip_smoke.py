@@ -86,3 +86,25 @@ def test_main_refuses_without_a_cuda_device(monkeypatch, capsys):
     assert chip_smoke.main() == 1
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_spread_prints_the_median_and_range():
+    assert chip_smoke.spread([0.5, 0.1, 0.3]) == "median 0.300 s (0.100-0.500 s, 3 runs)"
+    assert chip_smoke.spread([0.2, 0.4]) == "median 0.300 s (0.200-0.400 s, 2 runs)"
+
+
+def test_cli_prefix_is_the_header_and_the_first_lines(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "CLI_LINES", 2)
+    vcf = b"##fileformat=VCFv4.2\n#CHROM\tPOS\n1\ta\n1\tb\n1\tc\n"
+    assert chip_smoke.cli_prefix(vcf) == b"##fileformat=VCFv4.2\n#CHROM\tPOS\n1\ta\n1\tb\n"
+
+
+def test_the_sharded_path_and_every_device_layer_are_counted():
+    """The sharded path launches K1-K4, each held to its plain version;
+    every route's device layer has its staging timed inside it."""
+    assert set(chip_smoke.SHARDED_KERNELS) == set(chip_smoke.KERNELS)
+    assert "VCFC_SHARDED" in chip_smoke.ROUTE_ENV
+    for _env, _kernels, layers in chip_smoke.ROUTES.values():
+        for call in filter(None, layers.values()):
+            assert call["staging in it"] == chip_smoke.STAGING
+            assert any(name.startswith("device layer") for name in call)

@@ -190,6 +190,107 @@ def test_engine_on_cuda_matches_cpu(cuda_device, monkeypatch, parse):
     assert all(cuda_rle.LAUNCHES[k] > before[k] for k in kernels)
 
 
+def _batch_loop_inputs(S=300, L=1000):
+    """Each batch loop of the engine as a function of (line_batch, device),
+    on one corpus: 4 batches of 256 lines (the last short)."""
+    from vcfc_tpu_torch.format.vcf import compress_bytes, parse_metadata_headers
+    from vcfc_tpu_torch.host import fast, native
+    from vcfc_tpu_torch.host.parse import parse_vcf_bytes
+
+    vcf = generate_realistic_vcf(S, L, seed=12)
+    parsed = parse_vcf_bytes(vcf)
+    flagpos, _ = engine.encode_on_device(parsed.codes, S, 1024, "cpu")
+    header = parse_metadata_headers(vcf)
+    raw = np.frombuffer(vcf, np.uint8)
+    _start, end, sample_start = native.index_lines(raw, header.data_offset)
+    irregular = (end - sample_start) != 4 * S - 1
+    body = raw[header.data_offset :]
+    packed = fast.parse_vcfc_packed_native(compress_bytes(vcf))
+    return {
+        "encode_on_device": lambda lb, d: engine.encode_on_device(parsed.codes, S, lb, d),
+        "decode_on_device": lambda lb, d: engine.decode_on_device(flagpos[:, :S], S, lb, d),
+        "encode_text_on_device": lambda lb, d: engine.encode_text_on_device(
+            body, sample_start, irregular, S, lb, d),
+        "decode_text_on_device": lambda lb, d: engine.decode_text_on_device(flagpos, S, lb, d),
+        "unpack_decode_on_device": lambda lb, d: engine.unpack_decode_on_device(
+            packed.flags, packed.nflags, S, lb, d),
+    }
+
+
+@pytest.mark.parametrize("loop", ["encode_on_device", "decode_on_device", "encode_text_on_device",
+                                  "decode_text_on_device", "unpack_decode_on_device"])
+def test_pipelined_batch_loops_match_cpu(cuda_device, loop):
+    """The CUDA pipeline (pinned buffers reused over 4 batches, a copy
+    stream and a compute stream) against the CPU loop in one batch,
+    element by element."""
+    run = _batch_loop_inputs()[loop]
+    want = run(1024, "cpu")
+    for _ in range(2):  # the second call reuses the cached pinned blocks
+        got = run(256, cuda_device)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["codes", "flags", "bytes"])
+def test_histograms_on_cuda_match_cpu(cuda_device, kind):
+    from vcfc_tpu_torch.ops import histogram
+
+    rng = np.random.default_rng(13)
+    codes = rng.choice(5, size=(512, 2560), p=P).astype(np.uint8)
+    codes[:, 2504:] = 0
+    codes[-7:] = 0  # zero-padded rows
+    plane = {"codes": codes, "flags": rle_encode_plain(torch.from_numpy(codes), 2504)[0].numpy(),
+             "bytes": rng.integers(0, 256, (512, 2560), dtype=np.uint8)}[kind]
+    x, y = torch.from_numpy(plane), torch.from_numpy(plane).to(cuda_device)
+    _assert_equal([histogram.code_histogram(y).cpu()], [histogram.code_histogram(x)])
+    for n in (1, 1000, 2504, 2560, 5000):
+        _assert_equal([histogram.masked_code_histogram(y, n).cpu(),
+                       histogram.ctx_flag_histogram(y, n).cpu()],
+                      [histogram.masked_code_histogram(x, n), histogram.ctx_flag_histogram(x, n)])
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3])
+def test_sharded_steps_on_cuda_match_cpu(cuda_device, shards):
+    """Each sharded step over shards on the one card (a stream each)
+    against the same step over CPU shards."""
+    from vcfc_tpu_torch.parallel import dryrun, shard
+    from vcfc_tpu_torch.parallel.mesh import make_data_mesh
+
+    cuda = make_data_mesh(devices=(cuda_device,) * shards)
+    cpu = make_data_mesh(devices=("cpu",) * shards)
+    L, W, n = 768 * shards, 2560, 2504
+    codes = np.random.default_rng(shards).choice(5, size=(L, W), p=P).astype(np.uint8)
+    codes[:, n:] = 0
+    flagpos = rle_encode_plain(torch.from_numpy(codes), n)[0].numpy()
+    packed, nflags = dryrun.pack_flags(flagpos)
+    text = dryrun.code_words(codes, n)
+    for make, args in [
+        (shard.make_sharded_encode_step, (codes, n)),
+        (shard.make_sharded_codebook_step, (codes, n)),
+        (shard.make_sharded_decode_step, (flagpos, n)),
+        (lambda mesh: shard.make_sharded_unpack_decode_step(mesh, W), (packed, nflags, n)),
+        (shard.make_sharded_text_step, (text, n)),
+        (shard.make_sharded_roundtrip_step, (codes, n)),
+    ]:
+        _assert_equal(make(cuda)(*args), make(cpu)(*args))
+
+
+def test_sharded_codec_and_dryrun_on_cuda(cuda_device):
+    from vcfc_tpu_torch.format.vcf import compress_bytes
+    from vcfc_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    vcf = generate_realistic_vcf(300, 5000, seed=14)
+    vcfc = compress_bytes(vcf)
+    before = dict(cuda_rle.LAUNCHES)
+    for mesh in (None, (cuda_device,) * 2):
+        assert engine.compress_sharded(vcf, mesh) == vcfc
+        assert engine.decompress_sharded(vcfc, mesh) == vcf
+    assert all(cuda_rle.LAUNCHES[k] > before[k] for k in ("rle_encode", "rle_decode"))
+    dryrun_multichip(torch.cuda.device_count())
+    dryrun_multichip(2, devices=(cuda_device,) * 2)
+
+
 @pytest.mark.parametrize(
     "L,W,S,p",
     [

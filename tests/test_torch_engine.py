@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,6 +67,64 @@ def test_line_batches_split_rows_alike(line_batch):
     got = engine.compress(vcf, line_batch=line_batch, force_device=True, device=CPU)
     assert got == compress_bytes(vcf)
     assert engine.decompress(got, line_batch=line_batch, force_device=True, device=CPU) == vcf
+
+
+def _pipeline_inputs():
+    """The inputs of the five batch loops on one corpus of 700 lines and
+    300 samples: 3 batches of 256 lines (the last short), or one of 1,024."""
+    from vcfc_tpu_torch.format.vcf import parse_metadata_headers
+    from vcfc_tpu_torch.host import fast, native
+    from vcfc_tpu_torch.host.parse import parse_vcf_bytes
+
+    vcf = make_vcf(37, 300, 700, sv_every=11)
+    parsed = parse_vcf_bytes(vcf)
+    S = parsed.n_samples
+    flagpos, _ = engine.encode_on_device(parsed.codes, S, 1024, CPU)
+    header = parse_metadata_headers(vcf)
+    raw = np.frombuffer(vcf, np.uint8)
+    _start, end, sample_start = native.index_lines(raw, header.data_offset)
+    irregular = (end - sample_start) != 4 * S - 1
+    body = raw[header.data_offset :]
+    packed = fast.parse_vcfc_packed_native(compress_bytes(vcf))
+    return {
+        "encode_on_device": lambda lb: engine.encode_on_device(parsed.codes, S, lb, CPU),
+        "decode_on_device": lambda lb: engine.decode_on_device(flagpos[:, :S], S, lb, CPU),
+        "encode_text_on_device": lambda lb: engine.encode_text_on_device(
+            body, sample_start, irregular, S, lb, CPU),
+        "decode_text_on_device": lambda lb: engine.decode_text_on_device(flagpos, S, lb, CPU),
+        "unpack_decode_on_device": lambda lb: engine.unpack_decode_on_device(
+            packed.flags, packed.nflags, S, lb, CPU),
+    }
+
+
+@pytest.mark.parametrize("loop", ["encode_on_device", "decode_on_device", "encode_text_on_device",
+                                  "decode_text_on_device", "unpack_decode_on_device"])
+def test_batch_loops_match_one_batch(loop):
+    """Each batch loop over 3 batches (reused staging buffers, a short last
+    batch) gives the single batch's planes, element by element."""
+    run = _pipeline_inputs()[loop]
+    many, one = run(256), run(1024)
+    assert len(many) == len(one)
+    for a, b in zip(many, one):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_batch_loops_stage_into_reused_buffers(monkeypatch):
+    """The CPU loop stages every batch into the same buffer, and the rows
+    a full batch left behind are zero when the short last batch runs."""
+    seen = []
+    real = engine.rle_encode
+
+    def spy(batch, n):
+        seen.append((batch.data_ptr(), batch[700 % 256 :].count_nonzero().item()))
+        return real(batch, n)
+
+    monkeypatch.setattr(engine, "rle_encode", spy)
+    codes = np.random.default_rng(3).integers(1, 5, (700, 300), dtype=np.uint8)
+    engine.encode_on_device(codes, 300, 256, CPU)
+    assert len(seen) == 3 and len({ptr for ptr, _ in seen}) == 1
+    assert seen[0][1] > 0 and seen[2][1] == 0
 
 
 def test_host_executor(fixture_pair, monkeypatch):
@@ -146,8 +205,28 @@ def test_cli_usage_errors(tmp_path, monkeypatch, capsys):
     assert "does not exist" in capsys.readouterr().out
     assert cli.main(["query", "x.vcfc", "1"]) == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("stream", ["0", "1"])
+def test_cli_sharded_round_trip(tmp_path, small_vcf, small_vcfc, monkeypatch, stream):
+    """VCFC_SHARDED=1 runs the sharded codec over every visible device
+    (here 8 CPU shards) on the whole input, whatever VCFC_STREAM says."""
+    mesh = engine.make_data_mesh(devices=("cpu",) * 8)
+    monkeypatch.setattr(engine, "make_data_mesh", lambda devices=None: devices or mesh)
     monkeypatch.setenv("VCFC_SHARDED", "1")
-    assert cli.main(["compress", "a", "b"]) == 2
+    monkeypatch.setenv("VCFC_STREAM", stream)
+    calls = []
+    for name in ("compress_sharded", "decompress_sharded"):
+        real = getattr(engine, name)
+        monkeypatch.setattr(engine, name,
+                            lambda data, mesh=None, real=real: calls.append(real) or real(data, mesh))
+    src, mid, out = tmp_path / "in.vcf", tmp_path / "in.vcfc", tmp_path / "out.vcf"
+    src.write_bytes(small_vcf)
+    assert cli.main(["compress", str(src), str(mid)]) == 0
+    assert mid.read_bytes() == small_vcfc
+    assert cli.main(["decompress", str(mid), str(out)]) == 0
+    assert out.read_bytes() == small_vcf
+    assert len(calls) == 2
 
 
 @pytest.mark.parametrize("var", ["VCFC_PARSE", "VCFC_UNPACK"])
@@ -206,4 +285,7 @@ def test_port_imports_neither_jax_nor_triton():
     assert {"vcfc_tpu_torch.engine", "vcfc_tpu_torch.host.native",
             "vcfc_tpu_torch.eval.random_vcf", "vcfc_tpu_torch.ops.cuda_rle",
             "vcfc_tpu_torch.ops.probe", "vcfc_tpu_torch.eval.kernel_ceiling",
-            "vcfc_tpu_torch.eval.bench_codes", "vcfc_tpu_torch.eval.timing"} <= set(out["imported"])
+            "vcfc_tpu_torch.eval.bench_codes", "vcfc_tpu_torch.eval.timing",
+            "vcfc_tpu_torch.ops.histogram", "vcfc_tpu_torch.ops.huffman",
+            "vcfc_tpu_torch.parallel.mesh", "vcfc_tpu_torch.parallel.shard",
+            "vcfc_tpu_torch.parallel.dryrun"} <= set(out["imported"])

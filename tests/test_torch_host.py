@@ -152,6 +152,27 @@ def test_native_text_entry_points_match(name, data_dir):
                  jax_native.classify(body, sample_start, line_end, S))
 
 
+@pytest.mark.parametrize("name", INPUTS)
+def test_gather_text_into_a_reused_plane(name, data_dir):
+    """gather_text(out=) on a plane full of stale bytes gives the JAX
+    binding's new plane: the bytes the gather skips are zeroed."""
+    data = _inputs(name, data_dir)
+    header = vcf.parse_metadata_headers(data)
+    raw = np.frombuffer(data, np.uint8)
+    _start, line_end, sample_start = native.index_lines(raw, header.data_offset)
+    S = header.schema.sample_count
+    body = raw[header.data_offset :]
+    irregular = ((line_end - sample_start) != 4 * S - 1).astype(np.uint8)
+    irregular[::5] = 1  # rows a batch pads, or lines of another length
+    s_pad = max((S + 127) // 128 * 128, 128)
+    out = np.full((len(sample_start), 4 * s_pad), 0xAB, np.uint8)
+    got = native.gather_text(body, sample_start, irregular, S, s_pad, out=out)
+    assert got is out
+    _assert_same(got, jax_native.gather_text(body, sample_start, irregular, S, s_pad))
+    with pytest.raises(ValueError, match="C-contiguous uint8"):
+        native.gather_text(body, sample_start, irregular, S, s_pad, out=out[:, :-4])
+
+
 @pytest.mark.parametrize("S,L,seed", [(1, 50, 1), (300, 120, 2), (2504, 40, 5)])
 def test_generate_realistic_vcf_bytes_match(S, L, seed):
     assert random_vcf.generate_realistic_vcf(S, L, seed) == jax_random_vcf.generate_realistic_vcf(

@@ -5,7 +5,9 @@
 
 Inputs larger than VCFC_STREAM_THRESHOLD bytes (1 GiB by default), or any
 input when VCFC_STREAM=1, go through the bounded-memory streaming engine,
-as in ``vcfc_tpu.cli``.  The other verbs of ``vcfc_tpu.cli`` are not ported.
+as in ``vcfc_tpu.cli``.  VCFC_SHARDED=1 runs ``engine.compress_sharded`` /
+``decompress_sharded`` over every visible CUDA device instead, on the whole
+input (no streaming).  The other verbs of ``vcfc_tpu.cli`` are not ported.
 """
 
 from __future__ import annotations
@@ -28,10 +30,6 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{action}: not ported to vcfc_tpu_torch yet (use python -m vcfc_tpu.cli)",
               file=sys.stderr)
         return 2
-    if os.environ.get("VCFC_SHARDED", "") not in ("", "0"):
-        print("VCFC_SHARDED: the sharded codec is not ported to vcfc_tpu_torch yet",
-              file=sys.stderr)
-        return 2
     if len(args) != 2:
         print(USAGE, file=sys.stderr)
         return 1
@@ -43,10 +41,12 @@ def main(argv: list[str] | None = None) -> int:
         raise RuntimeError("input and output file are the same")
     from . import engine
 
+    sharded = os.environ.get("VCFC_SHARDED", "") not in ("", "0")
     stream_env = os.environ.get("VCFC_STREAM", "")
     threshold = int(os.environ.get("VCFC_STREAM_THRESHOLD", str(1 << 30)))
-    use_stream = stream_env not in ("", "0") or (
-        stream_env == "" and os.path.getsize(input_filename) > threshold
+    use_stream = not sharded and (
+        stream_env not in ("", "0")
+        or (stream_env == "" and os.path.getsize(input_filename) > threshold)
     )
     if use_stream:
         run = engine.compress_stream if action == "compress" else engine.decompress_stream
@@ -54,7 +54,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     with open(input_filename, "rb") as f:
         data = f.read()
-    run = engine.compress if action == "compress" else engine.decompress
+    if sharded:  # the sharded steps over every visible CUDA device
+        run = engine.compress_sharded if action == "compress" else engine.decompress_sharded
+    else:
+        run = engine.compress if action == "compress" else engine.decompress
     result = run(data)
     with open(output_filename, "wb") as f:
         f.write(result)

@@ -13,11 +13,17 @@ decodes it (K2).  The host layers are the port's own ``host`` and ``format``
 packages, copies of ``vcfc_tpu``'s.  Lines go to the device in
 zero-padded batches of the JAX engine's layout (multiples of 256 rows by
 ``S_pad = round_up(S, 128)`` columns), so the planes handed to the native
-assembly are the same.  Output is byte-for-byte the reference encoder's,
-like ``vcfc_tpu.engine``'s.
+assembly are the same.  On a CUDA device the batches overlap: pinned
+staging buffers, a copy stream for the H2D copies and a compute stream for
+the kernel and the D2H copies, ordered by events (``_pipeline``), so the
+host stages a batch while the ones before it are on the card.  ``compress_sharded`` / ``decompress_sharded`` run the
+sharded steps of ``parallel.shard`` over a mesh of local devices.  Output
+is byte-for-byte the reference encoder's, like ``vcfc_tpu.engine``'s.
 
 Every public function takes ``device``: None means ``cuda``, and raises
-when PyTorch sees no CUDA device; ``"cpu"`` runs the plain PyTorch kernels.
+when PyTorch sees no CUDA device; ``"cpu"`` runs the plain PyTorch kernels
+one batch after the other.  The sharded functions take ``mesh`` instead:
+None means every visible CUDA device.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from .ops.rle import (
     text_rle_encode,
     unpack_rle_decode,
 )
+from .parallel.mesh import make_data_mesh
+from .parallel.shard import make_sharded_decode_step, make_sharded_encode_step
 
 _LINE_BATCH = 2048  # a multiple of the 256-row batch granularity
 # Below this many genotype cells the device round trip costs more than the
@@ -83,6 +91,104 @@ def _text_route() -> bool:
     return native.available() and os.environ.get("VCFC_PARSE") == "device"
 
 
+_SLOTS = 3  # staging buffers a call: the host stages a batch while two are on the card
+
+
+def _stage(bufs, lo, hi, line_batch, stage) -> None:
+    if hi - lo < line_batch:  # rows a fuller batch left behind
+        for buf in bufs:
+            buf[hi - lo :] = 0
+    stage(lo, hi, bufs)
+
+
+class _Slot:
+    """One batch in flight: pinned staging buffers, device inputs, and the
+    events that order their reuse."""
+
+    def __init__(self, inputs, line_batch: int, device: torch.device):
+        self.host_in = [torch.zeros((line_batch, *shape), dtype=dtype, pin_memory=True)
+                        for shape, dtype in inputs]
+        self.device_in = [torch.empty_like(h, device=device) for h in self.host_in]
+        self.host_out = None  # pinned, shaped at the first fetch
+        self.loaded = torch.cuda.Event()  # H2D of host_in done
+        self.fetched = torch.cuda.Event()  # the kernel and its D2H into host_out done
+
+
+def _pipeline(L, line_batch, device, inputs, stage, kernel, outputs) -> None:
+    """``_run_batches`` on a CUDA device: H2D on a copy stream, the kernel
+    and its D2H into pinned memory on a compute stream, ordered by events,
+    so the host stages batch i + 1 while batch i is on the card.  The host
+    rewrites a pinned input only once its last H2D has completed, and reads
+    a D2H result only once it has landed; a device input is rewritten only
+    once the kernel that read it has run.  The kernel's outputs are made
+    and copied out on the compute stream, so the allocator may reuse them
+    as soon as the copy is queued."""
+    copy_in, compute = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    slots = [_Slot(inputs, line_batch, device) for _ in range(min(_SLOTS, -(-L // line_batch)))]
+    pending = []
+    # the device inputs may reuse memory the caller's stream still reads
+    copy_in.wait_stream(torch.cuda.current_stream(device))
+
+    def fetch():
+        lo, hi, slot = pending.pop(0)
+        slot.fetched.synchronize()
+        for plane, host in zip(outputs, slot.host_out):
+            # torch's copy runs on the intra-op threads (numpy's on one)
+            torch.from_numpy(plane[lo:hi]).copy_(host[: hi - lo])
+
+    try:
+        for b, lo in enumerate(range(0, L, line_batch)):
+            hi = min(lo + line_batch, L)
+            slot = slots[b % len(slots)]
+            slot.loaded.synchronize()
+            _stage([h.numpy() for h in slot.host_in], lo, hi, line_batch, stage)
+            copy_in.wait_event(slot.fetched)  # the slot's last kernel has read device_in
+            with torch.cuda.stream(copy_in):
+                for dev, host in zip(slot.device_in, slot.host_in):
+                    dev.copy_(host, non_blocking=True)
+            slot.loaded.record(copy_in)
+            compute.wait_event(slot.loaded)
+            with torch.cuda.stream(compute):
+                results = kernel(*slot.device_in)
+                if slot.host_out is None:
+                    slot.host_out = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                                     for o in results]
+                for host, out in zip(slot.host_out, results):  # the slot was fetched
+                    host.copy_(out, non_blocking=True)
+            slot.fetched.record(compute)
+            pending.append((lo, hi, slot))
+            if len(pending) == len(slots):
+                fetch()
+        while pending:
+            fetch()
+    finally:  # nothing in flight may outlive the buffers
+        copy_in.synchronize()
+        compute.synchronize()
+
+
+def _run_batches(L, line_batch, device, inputs, stage, kernel, outputs) -> None:
+    """Run ``kernel`` over the rows [0, L) in batches of ``line_batch`` rows.
+
+    ``inputs`` lists the kernel's inputs as (row shape, torch dtype): each
+    batch, ``stage(lo, hi, bufs)`` fills rows [0, hi - lo) of one
+    (line_batch, *shape) numpy buffer per input; the buffers' other rows
+    and every cell ``stage`` does not write are zero.  ``kernel(*tensors)``
+    returns a tuple of (line_batch, ...) tensors; rows [0, hi - lo) of the
+    k-th land in rows [lo, hi) of the numpy plane ``outputs[k]``.  On a
+    CUDA device the batches overlap (``_pipeline``); on the CPU they run
+    one after the other."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        _pipeline(L, line_batch, device, inputs, stage, kernel, outputs)
+        return
+    bufs = [torch.zeros((line_batch, *shape), dtype=dtype) for shape, dtype in inputs]
+    for lo in range(0, L, line_batch):
+        hi = min(lo + line_batch, L)
+        _stage([b.numpy() for b in bufs], lo, hi, line_batch, stage)
+        for plane, out in zip(outputs, kernel(*(b.to(device) for b in bufs))):
+            plane[lo:hi] = out[: hi - lo].cpu().numpy()
+
+
 def encode_on_device(codes: np.ndarray, S: int, line_batch: int, device) -> tuple:
     """RLE-encode (L, >= S) codes batch by batch (H2D copy, K1, D2H copy).
 
@@ -92,13 +198,12 @@ def encode_on_device(codes: np.ndarray, S: int, line_batch: int, device) -> tupl
     line_batch = _adaptive_line_batch(line_batch, S_pad)
     flagpos = np.zeros((L, S_pad), np.uint8)
     nseg = np.zeros(L, np.int32)
-    for lo in range(0, L, line_batch):
-        hi = min(lo + line_batch, L)
-        batch = np.zeros((line_batch, S_pad), np.uint8)
-        batch[: hi - lo, :S] = codes[lo:hi, :S]
-        f, k = rle_encode(torch.from_numpy(batch).to(device), S)
-        flagpos[lo:hi] = f[: hi - lo].cpu().numpy()
-        nseg[lo:hi] = k[: hi - lo].cpu().numpy()
+
+    def stage(lo, hi, bufs):
+        bufs[0][: hi - lo, :S] = codes[lo:hi, :S]
+
+    _run_batches(L, line_batch, device, [((S_pad,), torch.uint8)], stage,
+                 lambda batch: rle_encode(batch, S), [flagpos, nseg])
     return flagpos, nseg
 
 
@@ -110,23 +215,40 @@ def decode_on_device(flags: np.ndarray, S: int, line_batch: int, device) -> tupl
     line_batch = _adaptive_line_batch(line_batch, S_pad)
     codes = np.zeros((L, S_pad), np.uint8)
     decoded = np.zeros(L, np.int32)
-    for lo in range(0, L, line_batch):
-        hi = min(lo + line_batch, L)
-        batch = np.zeros((line_batch, S_pad), np.uint8)
-        batch[: hi - lo, :W] = flags[lo:hi]
-        c, d = rle_decode(torch.from_numpy(batch).to(device), S)
-        codes[lo:hi] = c[: hi - lo].cpu().numpy()
-        decoded[lo:hi] = d[: hi - lo].cpu().numpy()
+
+    def stage(lo, hi, bufs):
+        bufs[0][: hi - lo, :W] = flags[lo:hi]
+
+    _run_batches(L, line_batch, device, [((S_pad,), torch.uint8)], stage,
+                 lambda batch: rle_decode(batch, S), [codes, decoded])
     return codes, decoded
 
 
-def encode_text_on_device(text: np.ndarray, S: int, device) -> tuple:
-    """Classify and RLE-encode one batch of gathered genotype text (H2D
-    copy, K3, D2H copy): ``text`` is (B, 4 * S_pad) uint8, one "a|b\\t"
-    word per sample.  Returns (flagpos (B, S_pad) uint8, nseg (B,) int32,
-    seps_ok (B,) int32)."""
-    f, k, r = text_rle_encode(torch.from_numpy(text).view(torch.int32).to(device), S)
-    return f.cpu().numpy(), k.cpu().numpy(), r.cpu().numpy()
+def encode_text_on_device(body: np.ndarray, sample_start: np.ndarray, irregular: np.ndarray,
+                          S: int, line_batch: int, device) -> tuple:
+    """Gather each batch's genotype text (``native.gather_text``, one
+    "a|b\\t" word per sample; irregular lines stay zero), then classify and
+    RLE-encode it (H2D copy, K3, D2H copy); on a CUDA device the gather of
+    a batch runs while the batches before it are on the card.  Returns
+    (flagpos (L, S_pad) uint8, nseg (L,) int32, seps_ok (L,) int32)."""
+    L = len(sample_start)
+    S_pad = max(_round_up(S, 128), 128)
+    line_batch = _adaptive_line_batch(line_batch, S_pad)
+    flagpos = np.zeros((L, S_pad), np.uint8)
+    nseg = np.zeros(L, np.int32)
+    seps = np.ones(L, np.int32)
+
+    def stage(lo, hi, bufs):
+        # padded per-batch views; pad rows are marked irregular and stay zero
+        ss = np.zeros(line_batch, np.int64)
+        ss[: hi - lo] = sample_start[lo:hi]
+        ir = np.ones(line_batch, np.uint8)
+        ir[: hi - lo] = irregular[lo:hi]
+        native.gather_text(body, ss, ir, S, S_pad, out=bufs[0])
+
+    _run_batches(L, line_batch, device, [((4 * S_pad,), torch.uint8)], stage,
+                 lambda text: text_rle_encode(text.view(torch.int32), S), [flagpos, nseg, seps])
+    return flagpos, nseg, seps
 
 
 def compress_device_text(vcf: bytes, line_batch: int, force_device: bool, device) -> bytes | None:
@@ -150,23 +272,8 @@ def compress_device_text(vcf: bytes, line_batch: int, force_device: bool, device
         bad = int(np.flatnonzero(sample_start < 0)[0])
         raise VcfValidationError(f"data line {bad} has no FORMAT column (fewer than 9 tabs)")
     irregular = (line_end - sample_start) != (4 * S - 1)
-    S_pad = max(_round_up(S, 128), 128)
-    line_batch = _adaptive_line_batch(line_batch, S_pad)
-    flagpos = np.zeros((L, S_pad), np.uint8)
-    nseg = np.zeros(L, np.int32)
-    seps = np.ones(L, np.int32)
-    for lo in range(0, L, line_batch):
-        hi = min(lo + line_batch, L)
-        # padded per-batch views; pad rows are marked irregular and stay zero
-        ss = np.zeros(line_batch, np.int64)
-        ss[: hi - lo] = sample_start[lo:hi]
-        ir = np.ones(line_batch, np.uint8)
-        ir[: hi - lo] = irregular[lo:hi]
-        text = native.gather_text(body, ss, ir, S, S_pad)
-        f, k, r = encode_text_on_device(text, S, device)
-        flagpos[lo:hi] = f[: hi - lo]
-        nseg[lo:hi] = k[: hi - lo]
-        seps[lo:hi] = r[: hi - lo]
+    flagpos, nseg, seps = encode_text_on_device(body, sample_start, irregular, S, line_batch,
+                                                device)
     # rows whose separator bytes are not tabs were mis-sliced: oracle path
     irregular |= seps == 0
     # the native assembly never reads codes (it splices escape ASCII
@@ -186,13 +293,16 @@ def decode_text_on_device(flags: np.ndarray, S: int, line_batch: int, device) ->
     line_batch = _adaptive_line_batch(line_batch, S_pad)
     text = np.zeros((L, 4 * S_pad), np.uint8)
     decoded = np.zeros(L, np.int32)
-    for lo in range(0, L, line_batch):
-        hi = min(lo + line_batch, L)
-        batch = np.zeros((line_batch, S_pad), np.uint8)
-        batch[: hi - lo, :W] = flags[lo:hi]
-        t, _c, d = text_rle_decode(torch.from_numpy(batch).to(device), S)
-        text[lo:hi] = t[: hi - lo].cpu().numpy().view(np.uint8)
-        decoded[lo:hi] = d[: hi - lo].cpu().numpy()
+
+    def stage(lo, hi, bufs):
+        bufs[0][: hi - lo, :W] = flags[lo:hi]
+
+    def kernel(batch):
+        words, _codes, n = text_rle_decode(batch, S)
+        return words, n
+
+    _run_batches(L, line_batch, device, [((S_pad,), torch.uint8)], stage, kernel,
+                 [text.view(np.int32), decoded])
     return text, decoded
 
 
@@ -221,16 +331,14 @@ def unpack_decode_on_device(packed: np.ndarray, nflags: np.ndarray, S: int, line
     line_batch = _adaptive_line_batch(line_batch, S_pad)
     codes = np.zeros((L, S_pad), np.uint8)
     decoded = np.zeros(L, np.int32)
-    for lo in range(0, L, line_batch):
-        hi = min(lo + line_batch, L)
-        batch = np.zeros((line_batch, M), np.uint8)
-        batch[: hi - lo] = packed[lo:hi]
-        counts = np.zeros(line_batch, np.int32)
-        counts[: hi - lo] = nflags[lo:hi]
-        c, d = unpack_rle_decode(torch.from_numpy(batch).to(device),
-                                 torch.from_numpy(counts).to(device), S, out_width=S_pad)
-        codes[lo:hi] = c[: hi - lo].cpu().numpy()
-        decoded[lo:hi] = d[: hi - lo].cpu().numpy()
+
+    def stage(lo, hi, bufs):
+        bufs[0][: hi - lo] = packed[lo:hi]
+        bufs[1][: hi - lo] = nflags[lo:hi]
+
+    _run_batches(L, line_batch, device, [((M,), torch.uint8), ((), torch.int32)], stage,
+                 lambda batch, counts: unpack_rle_decode(batch, counts, S, out_width=S_pad),
+                 [codes, decoded])
     return codes, decoded
 
 
@@ -447,3 +555,72 @@ def decompress_stream(src, dst, chunk_bytes: int | None = None, device=None) -> 
     finally:
         for f in closers:
             f.close()
+
+
+# ---------------------------------------------------------------------------
+# Sharded codec: the encode and decode steps of parallel.shard over a mesh of
+# local devices (data parallelism across the line axis), byte-identical to
+# compress / decompress.
+
+
+def _shard_chunk(s_pad: int, n_dev: int) -> int:
+    """Lines a sharded step takes at once: the single-device batch cap,
+    rounded up to 256 rows a shard."""
+    return _round_up(max(_adaptive_line_batch(_LINE_BATCH, s_pad), 1), 256 * n_dev)
+
+
+def compress_sharded(vcf: bytes, mesh=None) -> bytes:
+    """Compress with the encode step sharded over ``mesh`` (devices; every
+    visible CUDA device by default): host parse, the sharded K1 step chunk
+    by chunk, native assembly.  Byte-identical to ``compress``; like the
+    JAX package's, it takes the parse route and has no min-cells gate."""
+    parsed = parse_vcf_bytes(vcf)
+    L, S = parsed.n_lines, parsed.n_samples
+    if L == 0 or S == 0:
+        return compress_bytes(vcf)
+    mesh = make_data_mesh(devices=mesh)
+    S_pad = max(_round_up(S, 128), 128)
+    chunk = _shard_chunk(S_pad, len(mesh))
+    step = make_sharded_encode_step(mesh, S_pad)
+    flagpos = np.zeros((L, S_pad), np.uint8)
+    nseg = np.zeros(L, np.int32)
+
+    def stage(lo, hi, bufs):
+        bufs[0][: hi - lo, :S] = parsed.codes[lo:hi]
+
+    # chunks staged on the host, one after the other: the step moves each
+    # shard to its device and returns once every shard is done
+    _run_batches(L, chunk, "cpu", [((S_pad,), torch.uint8)], stage,
+                 lambda codes: step(codes, S)[:2], [flagpos, nseg])
+    if native.available():
+        return fast.assemble_vcfc_native(parsed, flagpos, nseg)
+    return assemble_vcfc(parsed, flagpos, nseg)
+
+
+def decompress_sharded(vcfc: bytes, mesh=None) -> bytes:
+    """Decompress with the decode step sharded over ``mesh``: .vcfc parse,
+    the sharded K2 step chunk by chunk, render.  Byte-identical to
+    ``decompress`` (the reference's sequential spec: decompress2_fd,
+    compress.cpp:1214)."""
+    use_native = native.available()
+    parsed = fast.parse_vcfc_native(vcfc) if use_native else parse_vcfc_bytes(vcfc)
+    L = parsed.n_lines
+    S = parsed.header.schema.sample_count
+    if L == 0 or S == 0:
+        return decompress_bytes(vcfc)
+    mesh = make_data_mesh(devices=mesh)
+    W = parsed.flags.shape[1]
+    S_pad = max(_round_up(max(S, W), 128), 128)
+    chunk = _shard_chunk(S_pad, len(mesh))
+    step = make_sharded_decode_step(mesh, S_pad)
+    codes = np.zeros((L, S_pad), np.uint8)
+    decoded = np.zeros(L, np.int32)
+
+    def stage(lo, hi, bufs):
+        bufs[0][: hi - lo, :W] = parsed.flags[lo:hi]
+
+    _run_batches(L, chunk, "cpu", [((S_pad,), torch.uint8)], stage,
+                 lambda flags: step(flags, S), [codes, decoded])
+    if use_native:
+        return fast.assemble_vcf_native(parsed, codes, decoded)
+    return assemble_vcf(parsed, render_text(codes), decoded)

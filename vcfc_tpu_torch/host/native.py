@@ -230,13 +230,25 @@ def render_text_plane(raw, line_off, req_len, text, esc_count, esc_base,
     )
 
 
-def gather_text(body, sample_start, irregular, S: int, s_pad: int) -> np.ndarray:
+def gather_text(body, sample_start, irregular, S: int, s_pad: int, out=None) -> np.ndarray:
     """Gather regular lines' genotype regions into a (L, 4*s_pad) uint8
     plane (one "a|b\\t" int32 word per sample when viewed as int32) for
-    the device classify route; irregular rows stay zero."""
+    the device classify route; irregular rows stay zero.  ``out``, when
+    given, is that plane, reused: the bytes the gather does not write (the
+    irregular rows, and each row from byte 4*S - 1 on) are zeroed first, so
+    it ends as a new plane would."""
     lib = _load()
     L = len(sample_start)
-    text = np.zeros((L, 4 * s_pad), np.uint8)
+    shape = (L, 4 * s_pad)
+    if out is None:
+        text = np.zeros(shape, np.uint8)
+    else:
+        if out.shape != shape or out.dtype != np.uint8 or not out.flags.c_contiguous:
+            raise ValueError(f"out must be a C-contiguous uint8 {shape} plane, got "
+                             f"{out.dtype} {out.shape}")
+        text = out
+        text[np.asarray(irregular, bool)] = 0
+        text[:, max(4 * S - 1, 0) :] = 0
     lib.vcfc_gather_text(
         _ptr(body, _u8p), _ptr(sample_start, _i64p), _ptr(irregular, _u8p),
         L, S, 4 * s_pad, _ptr(text, _u8p),
