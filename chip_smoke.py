@@ -30,8 +30,17 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      the input restored; dryrun_multichip over both meshes; a CLI
      VCFC_SHARDED=1 round trip; and the encode, codebook and roundtrip
      steps' histograms against the plain CPU histograms of a cohort batch
+  3c. the .vcfz path: engine.compress (K1) once, then for each version
+     the device route encodes (1, 2, 3, 5, 8) the container written once by
+     the host writer and once by vcfz_from_vcfc(route="device") under
+     torch.profiler, byte-identical, the device counter moved by one; each
+     container decompressed by decompress_vcfz (K2) back to the input and
+     one region through query_vcfz equal to a full scan of the input; the
+     bytes, both walls, the device busy time, the top device operations and
+     the device time of the ported ops printed per version; then a CLI
+     compress-z (VCFZ_PACK=device) / decompress-z / query-z round trip
   4. each path's kernels' launch counts from its own run (phase 3's
-     routes, phase 3b's codec and dry run) above zero
+     routes, phase 3b's codec and dry run, phase 3c's .vcfz path) above zero
   5. each kernel's time and its plain version's (CUDA events, median,
      inputs read from HBM) beside its bound (the bytes it must move at the
      card's memory rate) and its plain-op line (its plain version's
@@ -82,7 +91,9 @@ from vcfc_tpu_torch.eval.edge_cases import (
 )
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch.eval.timing import LAUNCHES_PER_TRIAL, TRIALS, in_turns, median_ms, rotated
+from vcfc_tpu_torch.format import vcfz
 from vcfc_tpu_torch.format.vcf import parse_metadata_headers
+from vcfc_tpu_torch.format.vcfz_device import DEVICE_VERSIONS, ENCODES
 from vcfc_tpu_torch.host import fast, native
 from vcfc_tpu_torch.host.parse import parse_vcf_bytes
 from vcfc_tpu_torch.ops._build import build
@@ -103,6 +114,7 @@ from vcfc_tpu_torch.ops.cuda_rle import (
     kernel_info,
 )
 from vcfc_tpu_torch.ops.histogram import ctx_flag_histogram, masked_code_histogram
+from vcfc_tpu_torch.ops import vcfz_device
 from vcfc_tpu_torch.ops.probe import roundtrip_plain, scan_only_plain, scan_replaced_plain
 from vcfc_tpu_torch.ops.rle import (
     rle_decode_plain,
@@ -117,6 +129,7 @@ from vcfc_tpu_torch.parallel.shard import (
     make_sharded_encode_step,
     make_sharded_roundtrip_step,
 )
+from vcfc_tpu_torch.query.coordinate import compute_end_position, parse_coordinate_string
 
 REPO = Path(__file__).resolve().parent
 # The cohort: 1000 Genomes phase 3 has 2,504 samples.
@@ -218,7 +231,7 @@ PLAIN_OPS = {  # name -> the plain version's operations per cell
     "probe_tile_text_encode": 59,
     "probe_tile_text_decode": 37,
 }
-ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK", "VCFC_SHARDED")
+ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK", "VCFC_SHARDED", "VCFZ_PACK")
 # route -> its environment, its kernels, host-clock layers per engine call
 # (None: the call is the parse route's, which the route does not change).
 # A device layer's clock runs from its first staged batch to its last
@@ -257,6 +270,19 @@ ROUTES = {
 # The sharded path (phase 3b): its meshes, and its kernels (K1 and K2 in
 # the codec, K1-K4 in the dry run).
 SHARDED_KERNELS = ("rle_encode", "rle_decode", "text_encode", "text_decode")
+
+# The .vcfz path (phase 3c): the versions its device route encodes, the
+# kernels the path launches (K1 in engine.compress, K2 in decompress_vcfz),
+# the PyTorch ops of ops.vcfz_device whose device time the profile
+# attributes (each call wrapped in a record_function of its name; ctx_plane
+# also runs inside pack_cells where the pack has four contexts, v2 and v3,
+# and is part of its time there), and the query-z region: the CHROM and
+# POS of the middle line of the CLI prefix, to VCFZ_REGION_SPAN bases on.
+VCFZ_VERSIONS = DEVICE_VERSIONS
+VCFZ_KERNELS = ("rle_encode", "rle_decode")
+VCFZ_OPS = ("sympos_v3", "ctx_plane", "pack_cells")
+VCFZ_REGION_SPAN = 20_000
+TOP_DEVICE_OPS = 5
 
 
 def sharded_meshes():
@@ -490,21 +516,33 @@ def route_env(env):
 
 
 @contextlib.contextmanager
+def wrapping(targets, wrap):
+    """Inside, each function mod.attr of targets ({name: (mod, attr)}) is
+    replaced by wrap(name, the function); restored after."""
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in targets.items()}
+    for name, (mod, attr) in targets.items():
+        setattr(mod, attr, wrap(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name, (mod, attr) in targets.items():
+            setattr(mod, attr, saved[name])
+
+
+@contextlib.contextmanager
 def batch_shapes(mod, attr):
     """Record the shape of the first argument of every call of mod.attr
     made inside."""
     shapes = []
-    fn = getattr(mod, attr)
 
-    def spy(*args, **kwargs):
-        shapes.append(tuple(args[0].shape))
-        return fn(*args, **kwargs)
+    def spy(_name, fn):
+        def run(*args, **kwargs):
+            shapes.append(tuple(args[0].shape))
+            return fn(*args, **kwargs)
+        return run
 
-    setattr(mod, attr, spy)
-    try:
+    with wrapping({attr: (mod, attr)}, spy):
         yield shapes
-    finally:
-        setattr(mod, attr, fn)
 
 
 @contextlib.contextmanager
@@ -522,31 +560,33 @@ def layer_clock(layers):
                 seconds[name] += time.perf_counter() - t
         return run
 
-    saved = {name: getattr(mod, attr) for name, (mod, attr) in layers.items()}
-    for name, (mod, attr) in layers.items():
-        setattr(mod, attr, timed(name, saved[name]))
-    try:
+    with wrapping(layers, timed):
         yield seconds
-    finally:
-        for name, (mod, attr) in layers.items():
-            setattr(mod, attr, saved[name])
 
 
-def _cli_round_trip(prefix: bytes, route_vars: dict, phase: str = "phase 3"):
+def _cli(tmp: str, argv: list, route_vars: dict, phase: str) -> bytes:
+    """One process of the port's CLI in tmp, with the route variables
+    (ROUTE_ENV) of route_vars only; returns its standard output."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])]))
     for var in ROUTE_ENV:
         env.pop(var, None)
     env.update(route_vars)
+    r = subprocess.run([sys.executable, "-m", "vcfc_tpu_torch", *argv], cwd=tmp, env=env,
+                       capture_output=True)
+    if r.returncode:
+        raise SystemExit(f"{phase}: CLI {argv[0]} failed ({r.returncode}):\n"
+                         f"{r.stderr.decode(errors='replace')}")
+    return r.stdout
+
+
+def _cli_round_trip(prefix: bytes, route_vars: dict, phase: str = "phase 3"):
     with tempfile.TemporaryDirectory() as tmp:
         src, mid, out = (os.path.join(tmp, f) for f in ("in.vcf", "in.vcfc", "out.vcf"))
         with open(src, "wb") as f:
             f.write(prefix)
-        for verb, a, b in (("compress", src, mid), ("decompress", mid, out)):
-            r = subprocess.run([sys.executable, "-m", "vcfc_tpu_torch", verb, a, b],
-                               cwd=tmp, env=env, capture_output=True, text=True)
-            if r.returncode:
-                raise SystemExit(f"{phase}: CLI {verb} failed ({r.returncode}):\n{r.stderr}")
+        _cli(tmp, ["compress", src, mid], route_vars, phase)
+        _cli(tmp, ["decompress", mid, out], route_vars, phase)
         with open(mid, "rb") as f:
             cli_vcfc = f.read()
         with open(out, "rb") as f:
@@ -711,6 +751,139 @@ def phase3b_sharded(vcf: bytes, reference: bytes, prefix: bytes, parse_vcfc: byt
     return counts, times
 
 
+def vcfz_region(prefix: bytes) -> str:
+    """The query-z region: from the middle line of the CLI prefix, its CHROM
+    and POS to POS + VCFZ_REGION_SPAN."""
+    lines = prefix[parse_metadata_headers(prefix).data_offset :].split(b"\n")
+    chrom, pos = lines[len(lines) // 2].split(b"\t", 2)[:2]
+    return f"{chrom.decode()}:{int(pos)}-{int(pos) + VCFZ_REGION_SPAN}"
+
+
+def full_scan(vcf: bytes, region: str) -> bytes:
+    """The lines of a VCF that overlap region, SV-aware (query_vcfz's
+    semantics), by a scan of every line of the text."""
+    query = parse_coordinate_string(region)
+    header = parse_metadata_headers(vcf)
+    out = []
+    for line in vcf[header.data_offset :].split(b"\n")[:-1]:
+        cols = line.split(b"\t", 8)
+        pos = int(cols[1])
+        end = compute_end_position(pos, cols[3], cols[4], cols[7])
+        if query.compare_to_range(cols[0].decode(), pos, end) == 0:
+            out.append(line + b"\n")
+    return b"".join(out)
+
+
+def annotated(mod, labels):
+    """Inside, each call of mod.name of labels ({name: label}) runs in a
+    torch.profiler record_function of its label, so that the profile
+    attributes its device time to it."""
+    def wrap(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(labels[name]):
+                return fn(*args, **kwargs)
+        return run
+
+    return wrapping({name: (mod, name) for name in labels}, wrap)
+
+
+def _cli_vcfz_round_trip(prefix: bytes, region: str):
+    """compress-z under VCFZ_PACK=device (the device route; K1 first), then
+    decompress-z and query-z with VCFZ_PACK unset (the device decode is not
+    ported and refuses), each a CLI process in a temporary directory.
+    Returns (the container, the decompressed VCF, query-z's output)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, mid, out = (os.path.join(tmp, f) for f in ("in.vcf", "in.vcfz", "out.vcf"))
+        with open(src, "wb") as f:
+            f.write(prefix)
+        _cli(tmp, ["compress-z", src, mid], {"VCFZ_PACK": "device"}, "phase 3c")
+        _cli(tmp, ["decompress-z", mid, out], {}, "phase 3c")
+        queried = _cli(tmp, ["query-z", mid, region], {}, "phase 3c")
+        with open(mid, "rb") as f:
+            container = f.read()
+        with open(out, "rb") as f:
+            return container, f.read(), queried
+
+
+def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
+    """The .vcfz path on the cohort, the counts set to 0 just before and
+    read just after; then the CLI round trip.  Returns (the counts,
+    {version: its numbers})."""
+    card = subprocess.run(CARD_QUERY, check=True, capture_output=True, text=True).stdout.strip()
+    region = vcfz_region(prefix)
+    want_region = full_scan(vcf, region)
+    region_lines = want_region.count(b"\n")
+    labels = {name: f"ops.vcfz_device.{name}" for name in VCFZ_OPS}
+    start = time.perf_counter()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    for version in ENCODES:
+        ENCODES[version] = 0
+    t = time.perf_counter()
+    vcfc = engine.compress(vcf)
+    compress_s = time.perf_counter() - t
+    if vcfc != reference:
+        raise SystemExit("phase 3c: engine.compress bytes differ from the native host executor's")
+    print(f"phase 3c: {card}; engine.compress {compress_s:.3f} s -> {len(vcfc):,} bytes of "
+          f".vcfc; query-z region {region} ({region_lines} lines in a full scan)")
+    results = {}
+    for version in VCFZ_VERSIONS:
+        t = time.perf_counter()
+        host = vcfz.vcfz_from_vcfc(vcfc, version=version)
+        host_s = time.perf_counter() - t
+        device_out = []
+        with annotated(vcfz_device, labels):
+            wall, busy, kinds, by_name, op_ms = _device_busy(
+                lambda: device_out.append(vcfz.vcfz_from_vcfc(vcfc, version=version,
+                                                               route="device")),
+                labels=tuple(labels.values()))
+        if device_out[0] != host:
+            raise SystemExit(f"phase 3c: v{version}: the device route's bytes differ from the "
+                             "host writer's")
+        if ENCODES[version] != 1:
+            raise SystemExit(f"phase 3c: v{version}: the device route's counter reads "
+                             f"{ENCODES[version]}, not 1: the route fell back to the host writer")
+        t = time.perf_counter()
+        back = vcfz.decompress_vcfz(host)
+        decompress_s = time.perf_counter() - t
+        if back != vcf:
+            raise SystemExit(f"phase 3c: v{version}: decompress_vcfz does not restore the input")
+        del back
+        t = time.perf_counter()
+        got_region = b"".join(vcfz.query_vcfz(host, parse_coordinate_string(region)))
+        query_s = time.perf_counter() - t
+        if got_region != want_region:
+            raise SystemExit(f"phase 3c: v{version}: query_vcfz {region} differs from the full "
+                             "scan")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
+        ops = {name: op_ms[label] for name, label in labels.items()}
+        results[version] = {
+            "vcfz_bytes": len(host), "host_writer_s": host_s, "device_route_s": wall / 1e3,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall, "kinds_ms": kinds,
+            "ops_device_ms": ops, "top_device_ops_ms": dict(top),
+            "decompress_vcfz_s": decompress_s, "query_vcfz_s": query_s}
+        print(f"phase 3c: v{version}: {len(host):,} bytes; host writer {host_s:.3f} s, device "
+              f"route {wall / 1e3:.3f} s (profiled), bytes equal, counter 1; device busy "
+              f"{busy:.3f} ms, idle share {1 - busy / wall:.4f} ("
+              + ", ".join(f"{kind} {ms:.3f}" for kind, ms in kinds.items())
+              + " ms); ops " + ", ".join(f"{name} {ms:.3f}" for name, ms in ops.items())
+              + " ms; decompress_vcfz " + f"{decompress_s:.3f} s restores the input; query_vcfz "
+              + f"{query_s:.3f} s equals the full scan; top device ops: "
+              + "; ".join(f"{name[:80]} {ms:.3f} ms" for name, ms in top))
+        del host, device_out
+    counts = dict(LAUNCHES)
+    print(f"phase 3c: launches over the .vcfz path {counts}; device encodes {dict(ENCODES)}")
+    container, back, queried = _cli_vcfz_round_trip(prefix, region)
+    queried_lines = queried.count(b"\n")
+    if (container != vcfz.vcfz_from_vcfc(host_reference(prefix)) or back != prefix
+            or queried != full_scan(prefix, region)):
+        raise SystemExit("phase 3c: CLI compress-z / decompress-z / query-z round trip differs")
+    print(f"phase 3c: CLI compress-z (VCFZ_PACK=device) / decompress-z / query-z round trip ok "
+          f"({CLI_LINES} lines, {len(container):,} bytes, {queried_lines} lines queried); "
+          f"phase 3c in {time.perf_counter() - start:.1f} s")
+    return counts, results
+
+
 def int32_ops_per_s() -> float:
     """The card's peak INT32 rate: lanes per SM per clock x SMs x max SM clock."""
     mhz = subprocess.run(CLOCK_QUERY, check=True, capture_output=True, text=True).stdout
@@ -797,10 +970,14 @@ def phase5_times(vcf, stats, launches, int_rate):
     return rows
 
 
-def _device_busy(fn):
-    """Run fn under torch.profiler; returns (wall ms, busy ms, ms by kind)
-    from the events on the CUDA device only (kernels and memcpys): busy is
-    the union of their intervals, host runtime and aten rows never count."""
+def _device_busy(fn, labels=()):
+    """Run fn under torch.profiler; returns (wall ms, busy ms, ms by kind,
+    ms by name, {label: ms}) from the events on the CUDA device only
+    (kernels and memcpys): busy is the union of their intervals, host
+    runtime and aten rows never count.  Each of ``labels`` is a
+    record_function inside fn: its device time is that of the device events
+    linked to the ops its calls ran (the profiler also links the label's own
+    span on the device to it, which neither it nor busy counts)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -809,13 +986,22 @@ def _device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in labels]
     if not events:
         raise SystemExit("phase 6: the profiler recorded no CUDA-device events")
     kinds = {"h2d": 0.0, "d2h": 0.0, "kernel": 0.0, "other": 0.0}
-    spans = []
+    by_name, spans = {}, []
+    def device_us(e):
+        return (sum(k.duration for k in e.kernels if k.name not in labels)
+                + sum(device_us(child) for child in e.cpu_children))
+
+    by_label = dict.fromkeys(labels, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in by_label:
+            by_label[e.name] += device_us(e) / 1e3
     for e in events:
         start, end = e.time_range.start, e.time_range.end
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
         spans.append((start, end))
         kind = ("h2d" if e.name.startswith("Memcpy HtoD") else
                 "d2h" if e.name.startswith("Memcpy DtoH") else
@@ -831,7 +1017,7 @@ def _device_busy(fn):
         else:
             cur_end = max(cur_end, end)
     busy_us += cur_end - cur_start
-    return wall_ms, busy_us / 1e3, kinds
+    return wall_ms, busy_us / 1e3, kinds, by_name, by_label
 
 
 def phase6_breakdown(vcf: bytes, runs):
@@ -854,7 +1040,7 @@ def phase6_breakdown(vcf: bytes, runs):
             calls.insert(0, ("compress", lambda: engine.compress(vcf)))
         with route_env(ROUTES[route][0]):
             for call, fn in calls:
-                wall, busy, kinds = _device_busy(fn)
+                wall, busy, kinds, _by_name, _labels = _device_busy(fn)
                 if busy > wall:
                     raise SystemExit(f"phase 6: {route} {call} device busy {busy} ms exceeds "
                                      f"its wall {wall} ms")
@@ -957,11 +1143,13 @@ def main() -> int:
     runs = phase3_main_path(vcf, reference, prefix)
     sharded_counts, sharded_times = phase3b_sharded(vcf, reference, prefix,
                                                     runs["parse route"]["vcfc"])
+    vcfz_counts, vcfz_results = phase3c_vcfz(vcf, reference, prefix)
 
     # path -> (its counts, the kernels it must launch)
     paths = {route: (runs[route]["counts"], kernels)
              for route, (_env, kernels, _layers) in ROUTES.items()}
     paths["sharded path"] = (sharded_counts, SHARDED_KERNELS)
+    paths[".vcfz path"] = (vcfz_counts, VCFZ_KERNELS)
     launches_by_path = {}  # kernel -> {path: launches}
     for path, (counts, kernels) in paths.items():
         if not all(counts[name] > 0 for name in kernels):
@@ -995,7 +1183,8 @@ def main() -> int:
             for route, run in runs.items()},
         "sharded": {name: {**t, "compress_median_s": median(t["compress_s"]),
                            "decompress_median_s": median(t["decompress_s"])}
-                    for name, t in sharded_times.items()}}}))
+                    for name, t in sharded_times.items()},
+        "vcfz": {f"v{version}": numbers for version, numbers in vcfz_results.items()}}}))
     phase6_breakdown(vcf, runs)
     phase6_overlap_control(vcf, runs)
     kernel_rows += phase7_ablation(stats, int_rate)

@@ -108,3 +108,41 @@ def test_the_sharded_path_and_every_device_layer_are_counted():
         for call in filter(None, layers.values()):
             assert call["staging in it"] == chip_smoke.STAGING
             assert any(name.startswith("device layer") for name in call)
+
+
+def test_vcfz_phase_runs_every_device_version_and_reads_the_routes_counter():
+    """Phase 3c writes each version the device route encodes and reads the
+    counter the route itself moves; its path launches K1 and K2."""
+    from vcfc_tpu_torch.format import vcfz_device
+    from vcfc_tpu_torch.ops import vcfz_device as ops
+
+    assert chip_smoke.VCFZ_VERSIONS == vcfz_device.DEVICE_VERSIONS == (1, 2, 3, 5, 8)
+    assert chip_smoke.ENCODES is vcfz_device.ENCODES
+    assert set(vcfz_device.ENCODES) == set(chip_smoke.VCFZ_VERSIONS)
+    assert set(chip_smoke.VCFZ_KERNELS) == {"rle_encode", "rle_decode"}
+    assert set(chip_smoke.VCFZ_KERNELS) <= set(chip_smoke.KERNELS)
+    assert all(callable(getattr(ops, name)) for name in chip_smoke.VCFZ_OPS)
+
+
+def test_vcfz_region_and_full_scan(data_dir):
+    """The region starts at the prefix's middle line, and the full scan
+    keeps the lines that overlap it, SV-aware, as query_vcfz does."""
+    vcf = (data_dir / "sv.vcf").read_bytes()
+    body = vcf[chip_smoke.parse_metadata_headers(vcf).data_offset :].split(b"\n")
+    chrom, pos = body[len(body) // 2].split(b"\t", 2)[:2]
+    assert chip_smoke.vcfz_region(vcf) == (
+        f"{chrom.decode()}:{int(pos)}-{int(pos) + chip_smoke.VCFZ_REGION_SPAN}")
+    assert chip_smoke.full_scan(vcf, "1:400-460") == (data_dir / "qb_sv_400_460.out").read_bytes()
+
+
+def test_annotated_wraps_and_restores():
+    from vcfc_tpu_torch.ops import vcfz_device as ops
+
+    real = ops.sympos_v3
+    labels = {"sympos_v3": "ops.vcfz_device.sympos_v3"}
+    with chip_smoke.annotated(ops, labels):
+        assert ops.sympos_v3 is not real
+        out = ops.sympos_v3(torch.tensor([[0xE1, 3]], dtype=torch.uint8),
+                            torch.tensor([[7, 0]], dtype=torch.int32))
+    assert ops.sympos_v3 is real
+    assert out.tolist() == [[263, 3]]

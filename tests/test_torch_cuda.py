@@ -347,3 +347,63 @@ def test_unpack_route_on_cuda_matches_cpu(cuda_device, monkeypatch):
     before = cuda_rle.LAUNCHES["rle_decode"]
     assert engine.decompress(vcfc, force_device=True, device=cuda_device) == vcf
     assert cuda_rle.LAUNCHES["rle_decode"] > before
+
+
+@pytest.mark.parametrize("n_ctx", [1, 4])
+def test_vcfz_ops_on_cuda_match_cpu(cuda_device, n_ctx):
+    """sympos_v3, ctx_plane and pack_cells on the card against their CPU
+    form, element by element, on sparse grids of cohort blocks (words with
+    bit 31 set among them) and on a block holding four symbols."""
+    from vcfc_tpu_torch.ops import vcfz_device as vd
+    from vcfc_tpu_torch.ops.huffman import CTX_INIT, Codebook, context_codebooks
+
+    rng = np.random.default_rng(21 + n_ctx)
+    flags = np.where(rng.random((512, 2560)) < 0.2, rng.integers(1, 256, (512, 2560)), 0)
+    flags[rng.random((512, 2560)) < 0.01] = 0xE1
+    esc = rng.integers(0, 40, (512, 2560)).astype(np.int32)
+    sym = vd.sympos_v3(torch.from_numpy(flags.astype(np.uint8)), torch.from_numpy(esc))
+    got = vd.sympos_v3(torch.from_numpy(flags.astype(np.uint8)).to(cuda_device),
+                       torch.from_numpy(esc).to(cuda_device))
+    assert torch.equal(got.cpu(), sym)
+    cells = sym.reshape(2, 256 * 2560)  # two blocks of 256 lines
+    streams = [row[row != 0].numpy().astype(np.int64) for row in cells]
+    alphabet = 256 + 40
+    if n_ctx == 1:
+        books = [Codebook.from_frequencies(np.bincount(np.concatenate(streams),
+                                                       minlength=alphabet))]
+    else:
+        books = context_codebooks(streams, alphabet)
+    entries = torch.from_numpy(vd.pack_entries(books))
+    valid = cells != 0
+    ctx = vd.ctx_plane(cells, valid, alphabet, CTX_INIT, v4=False)
+    assert torch.equal(vd.ctx_plane(cells.to(cuda_device), valid.to(cuda_device), alphabet,
+                                    CTX_INIT, v4=False).cpu(), ctx)
+    boundary = torch.zeros((1, 256 * 2560), dtype=torch.int32)
+    boundary[0, :4] = torch.tensor([0x7F, 0x7F, 0x7F, 0x7F])  # whole words of 0|0 runs
+    for grid in (cells, boundary):
+        want = vd.pack_cells(grid, grid != 0, entries, alphabet, CTX_INIT, n_ctx=n_ctx, v4=False)
+        out = vd.pack_cells(grid.to(cuda_device), (grid != 0).to(cuda_device),
+                            entries.to(cuda_device), alphabet, CTX_INIT, n_ctx=n_ctx, v4=False)
+        for g, w in zip(out, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        if grid is cells:
+            assert (want[0][want[1]] < 0).any()  # words with bit 31 set
+
+
+@pytest.mark.parametrize("version", [1, 2, 3, 5, 8])
+def test_vcfz_device_route_on_cuda_matches_host_writer(cuda_device, monkeypatch, version):
+    """The device route on the card, in one batch and in batches of 4
+    blocks, byte-identical to the host writer; the route's counter moves
+    once a container."""
+    from vcfc_tpu_torch.format import vcfz, vcfz_device
+
+    vcfc = engine.compress(generate_realistic_vcf(300, 1500, seed=14), force_device=True,
+                           device="cpu")
+    want = vcfz.vcfz_from_vcfc(vcfc, version=version)
+    before = vcfz_device.ENCODES[version]
+    assert vcfz.vcfz_from_vcfc(vcfc, version=version, route="device",
+                               device=cuda_device) == want
+    want16 = vcfz.vcfz_from_vcfc(vcfc, block_lines=16, version=version)
+    monkeypatch.setattr(vcfz_device, "_MAX_CELLS", 16 * 384 * 4)
+    assert vcfz_device.vcfz_from_vcfc_device(vcfc, 16, version, device=cuda_device) == want16
+    assert vcfz_device.ENCODES[version] == before + 2

@@ -288,4 +288,7 @@ def test_port_imports_neither_jax_nor_triton():
             "vcfc_tpu_torch.eval.bench_codes", "vcfc_tpu_torch.eval.timing",
             "vcfc_tpu_torch.ops.histogram", "vcfc_tpu_torch.ops.huffman",
             "vcfc_tpu_torch.parallel.mesh", "vcfc_tpu_torch.parallel.shard",
-            "vcfc_tpu_torch.parallel.dryrun"} <= set(out["imported"])
+            "vcfc_tpu_torch.parallel.dryrun", "vcfc_tpu_torch.format.vcfz",
+            "vcfc_tpu_torch.format.vcfz_device", "vcfc_tpu_torch.ops.vcfz_device",
+            "vcfc_tpu_torch.index.scan", "vcfc_tpu_torch.query.coordinate",
+            "vcfc_tpu_torch.utils.refmap", "vcfc_tpu_torch.cli"} <= set(out["imported"])

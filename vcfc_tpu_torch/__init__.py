@@ -15,11 +15,14 @@ streaming forms, on the hand-written CUDA kernels of
 decompress route (packed flags unpacked on the device, then K2); the
 sharded codec ``engine.compress_sharded`` / ``decompress_sharded`` over a
 mesh of local devices (``parallel``), with the histograms of
-``ops.histogram``; and the K1/K2 ablation ``eval.kernel_ceiling`` on the
-probes of ``csrc/probe_kernels.cu`` (C1-C4).  The host layers (``host``,
-``format``, ``eval.random_vcf``, ``eval.bench_codes``) are the port's own
-copies of the JAX package's; this package imports neither ``jax`` nor
-``vcfc_tpu``.
+``ops.histogram``; the ``.vcfz`` container (``format.vcfz``: the host
+writer and reader for v1-v8, and the device encode of v1, v2, v3, v5 and v8
+in ``format.vcfz_device`` on the PyTorch ops of ``ops.vcfz_device``); and
+the K1/K2 ablation ``eval.kernel_ceiling`` on the probes of
+``csrc/probe_kernels.cu`` (C1-C4).  The host layers (``host``, ``format``,
+``index``, ``query``, ``utils``, ``ops.huffman``, ``eval.random_vcf``,
+``eval.bench_codes``) are the port's own copies of the JAX package's; this
+package imports neither ``jax`` nor ``vcfc_tpu``.
 """
 
 __version__ = "0.3.0"

@@ -1,2 +1,3 @@
-"""The .vcfc byte format: the port's copy of ``vcfc_tpu/format``'s
-``.vcfc`` modules (``constants``, ``headers``, ``lines``, ``vcf``)."""
+"""The .vcfc and .vcfz byte formats: the port's copy of ``vcfc_tpu/format``'s
+``constants``, ``headers``, ``lines``, ``vcf`` and ``vcfz``, and the port of
+its ``vcfz_device``."""

@@ -1,0 +1,236 @@
+"""Device-route `.vcfz` writer: the port of ``vcfc_tpu/format/vcfz_device.py``'s
+``vcfz_from_vcfc_device`` for the versions without the vertical transform
+(v1, v2, v3, v5 and v8), on the dense path.
+
+The output is BYTE-IDENTICAL to the host writer (``format/vcfz.py``):
+
+  symbol emission   the positional flag bytes already ARE the symbol stream
+                    (escape flags swap to their dictionary symbol):
+                    ``ops.vcfz_device.sympos_v3``, so non-greedy streams
+                    transcode byte-exactly like the host walker
+  Huffman bit pack  ``ops.vcfz_device.pack_cells`` per block (cumsum bit
+                    offsets, word assembly by a segmented sum) for the
+                    symbol payloads, v8's per-context sub-payloads (masked
+                    by ``ctx_plane``) and the v3+ order-0 required-columns
+                    payloads
+
+Dense O(cells) work runs as PyTorch ops on ``device`` (None: the CUDA
+device); the host does the O(outputs) compactions (``compact_payloads``
+over the positional word plane) and the tiny codebook builds.  The escape
+dictionary and the per-(context, symbol) frequencies stay on the host:
+they are O(symbols), and they anchor the byte contract to the same
+``context_codebooks`` the host writer uses.
+
+Returns None (the caller falls back to the host writer) for structurally
+unsupported inputs only: zero lines, zero samples, or lines the native
+parser routes to the oracle (escape flags with count != 1, which none of
+the encoders produce).  Without the native library it raises.  v4, v6 and
+v7 (the vertical transform) raise NotImplementedError: they come in the
+next slice (ROADMAP A.2).  Each container the route encodes adds one to
+``ENCODES[version]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import engine
+from ..host import native
+from ..host.fast import parse_vcfc_native
+from ..ops import vcfz_device as ops
+from ..ops.huffman import CTX_INIT, N_CTX, Codebook, context_codebooks
+from .vcfz import _assemble_container, _scan_geometry, _symbol_streams_native, req_codebook
+
+DEVICE_VERSIONS = (1, 2, 3, 5, 8)  # the versions this route encodes
+ENCODES = dict.fromkeys(DEVICE_VERSIONS, 0)  # version -> containers encoded on the device
+
+# cells per pack dispatch: pack_cells holds ~15 working planes, so 16M
+# cells keeps the peak device footprint a few GB (its int64 planes)
+_MAX_CELLS = 16 * 1024 * 1024
+
+
+def _lines_per_batch(block_lines: int, s_pad: int) -> int:
+    per = max(_MAX_CELLS // max(s_pad, 1), block_lines)
+    return (per // block_lines) * block_lines
+
+
+class _BatchFeed:
+    """Per-batch (flags, escape-id) planes, built lazily so the host never
+    materializes an O(L * S_pad) int32 escape plane.  Escape occurrences
+    arrive as (line, sample, id) triples sorted by line: ids from the
+    compacted v3 symbol stream (first-occurrence order, the byte contract),
+    positions from the native escape side channel, both enumerated in
+    (line, sample) order."""
+
+    def __init__(self, parsed, all_syms: np.ndarray, S_pad: int, lpb: int):
+        self.flags = parsed.flags
+        self.W = parsed.flags.shape[1]
+        self.S_pad = S_pad
+        self.lpb = lpb
+        self.L = parsed.n_lines
+        self.esc_lines = np.repeat(
+            np.arange(self.L, dtype=np.int64),
+            parsed.esc_count.astype(np.int64),
+        )
+        self.esc_samples = parsed.esc_sample
+        self.esc_ids = (all_syms[all_syms >= 256] - 256).astype(np.int32)
+
+    def batch(self, b0: int):
+        """(flag plane, escape-id plane) of the batch at line b0."""
+        b1 = min(b0 + self.lpb, self.L)
+        fb = np.zeros((self.lpb, self.S_pad), np.uint8)
+        fb[: b1 - b0, : self.W] = self.flags[b0:b1]
+        k0, k1 = np.searchsorted(self.esc_lines, [b0, b1])
+        eb = np.zeros((self.lpb, self.S_pad), np.int32)
+        if k1 > k0:
+            eb[self.esc_lines[k0:k1] - b0, self.esc_samples[k0:k1]] = self.esc_ids[k0:k1]
+        return fb, eb
+
+
+def _payloads(packed) -> list[bytes]:
+    """pack_cells' outputs -> per-block payload bytes, on the host."""
+    word_val, emit, total_bits, bad = packed
+    if bool(bad.any()):  # the books cover the streams they were built from
+        raise RuntimeError("device packer: symbol without codeword")
+    return ops.compact_payloads(word_val.cpu().numpy(), emit.cpu().numpy(),
+                                total_bits.cpu().numpy())
+
+
+def vcfz_from_vcfc_device(
+    vcfc: bytes, block_lines: int, version: int, device=None
+) -> bytes | None:
+    """.vcfc -> .vcfz bytes of ``version`` (1, 2, 3, 5 or 8), encoded on
+    ``device`` (None: the CUDA device; raises without one), or None for
+    the structural cases the host writer takes (see the module)."""
+    if version in (4, 6, 7):
+        raise NotImplementedError(
+            f".vcfz v{version} needs the vertical transform (symbol_grid, sympos_v4) on "
+            "the device, which is not ported to vcfc_tpu_torch yet: ROADMAP A.2, the "
+            "next slice; the host writer (route=None) encodes it"
+        )
+    if version not in DEVICE_VERSIONS:
+        raise ValueError(f"unsupported .vcfz version {version}")
+    device = engine._device(device)
+    if not native.available():
+        raise RuntimeError(
+            "the .vcfz device route needs the native host library "
+            "(make -C native libvcfc_host.so, which the port runs at first use)"
+        )
+    parsed = parse_vcfc_native(vcfc)
+    L = parsed.n_lines
+    S = parsed.header.schema.sample_count
+    if L == 0 or S == 0 or parsed.oracle_line.any():
+        return None
+    fast = _symbol_streams_native(vcfc, parsed)
+    if fast is None:  # pragma: no cover - native.available() checked above
+        return None
+    all_syms3, nsym3, esc_list = fast
+    nsym3 = nsym3.astype(np.int64)
+
+    geo = _scan_geometry(vcfc)
+    W = parsed.flags.shape[1]
+    S_pad = (W + 127) // 128 * 128
+    block_ranges = [(lo, min(lo + block_lines, L)) for lo in range(0, L, block_lines)]
+    n_blocks = len(block_ranges)
+    # a batch never holds more blocks than the input has (padding rows are
+    # not packed; the JAX package pads a short input to a full batch)
+    lpb = min(_lines_per_batch(block_lines, S_pad), n_blocks * block_lines)
+    bpb = lpb // block_lines  # blocks per batch
+    batch_starts = list(range(0, L, lpb))
+    feed = _BatchFeed(parsed, all_syms3, S_pad, lpb)
+
+    n_symbols = 256 + len(esc_list)
+    m_base = n_symbols  # no vertical-match band: m_base only bounds the classes
+    n_ctx = 1 if version in (1, 5) else N_CTX
+
+    # ---- the codebooks, on the host, from the natively compacted streams
+    nsym = nsym3.astype(np.uint32)
+    sym_ends = np.cumsum(nsym3)
+    per_block_syms = []
+    for lo, hi in block_ranges:
+        s0 = 0 if lo == 0 else int(sym_ends[lo - 1])
+        per_block_syms.append(all_syms3[s0 : int(sym_ends[hi - 1])].astype(np.int64))
+    if version in (1, 5):
+        books = [Codebook.from_frequencies(np.bincount(all_syms3, minlength=n_symbols))]
+    else:
+        books = context_codebooks(per_block_syms, n_symbols)
+
+    # ---- on the device, batch by batch: symbol emission, then the Huffman
+    # bit packing of every block's cells
+    payloads: list[bytes] = []
+    ctx_meta: list[bytes] | None = [] if version == 8 else None
+    if version == 8:
+        entries_by_ctx = [torch.from_numpy(ops.pack_entries([bk])).to(device) for bk in books]
+    else:
+        entries = torch.from_numpy(ops.pack_entries(books)).to(device)
+    for gi, b0 in enumerate(batch_starts):
+        take = min(n_blocks - gi * bpb, bpb)
+        fb, eb = feed.batch(b0)
+        sp = ops.sympos_v3(torch.from_numpy(fb).to(device), torch.from_numpy(eb).to(device))
+        # the batch's blocks, one row each (rows past the last block hold
+        # only padding and are not packed)
+        cells = sp.reshape(bpb, block_lines * S_pad)[:take]
+        del fb, eb, sp
+        present = cells != 0
+        if version == 8:
+            # context-SPLIT packing: the ctx plane (the cummax pack_cells
+            # uses) masks one pack per context, so each sub-payload is an
+            # independent bitstream under its own (order-0) book
+            ctxp = ops.ctx_plane(cells, present, m_base, CTX_INIT, v4=False)
+            parts_by_ctx, counts_by_ctx = [], []
+            for c in range(N_CTX):
+                mask = present & (ctxp == c)
+                parts_by_ctx.append(_payloads(
+                    ops.pack_cells(cells, mask, entries_by_ctx[c], m_base, 0, n_ctx=1, v4=False)))
+                counts_by_ctx.append(mask.sum(dim=1).cpu().numpy())
+                del mask
+            del ctxp
+            for k in range(take):
+                parts = [parts_by_ctx[c][k] for c in range(N_CTX)]
+                payloads.append(b"".join(parts))
+                ctx_meta.append(
+                    np.array([int(counts_by_ctx[c][k]) for c in range(N_CTX)], np.uint32).tobytes()
+                    + np.array([len(p) for p in parts], np.uint32).tobytes()
+                )
+        else:
+            payloads.extend(_payloads(
+                ops.pack_cells(cells, present, entries, m_base, CTX_INIT, n_ctx=n_ctx, v4=False)))
+        del cells, present
+
+    # ---- required-columns payloads (v3+): order-0 device pack
+    req_book = req_codebook(geo.req_blob) if version >= 3 else None
+    req_payloads: list[bytes] = []
+    if version >= 3:
+        req_starts = np.zeros(L + 1, np.int64)
+        np.cumsum(geo.req_lens, out=req_starts[1:])
+        req_np = np.frombuffer(geo.req_blob, np.uint8)
+        blk_req_len = np.array(
+            [int(req_starts[hi] - req_starts[lo]) for lo, hi in block_ranges], np.int64
+        )
+        R_pad = (int(blk_req_len.max()) + 127) // 128 * 128
+        req_entries = torch.from_numpy(ops.pack_entries([req_book])).to(device)
+        # req blocks are small (block_lines * ~40 B); batch them so the
+        # dispatch count stays low without exceeding the cell budget
+        rbpb = max(_MAX_CELLS // max(R_pad, 1), 1)
+        for r0 in range(0, n_blocks, rbpb):
+            r1 = min(r0 + rbpb, n_blocks)
+            g = np.zeros((r1 - r0, R_pad), np.int32)
+            v = np.zeros((r1 - r0, R_pad), bool)
+            for k in range(r0, r1):
+                lo, hi = block_ranges[k]
+                n = int(blk_req_len[k])
+                g[k - r0, :n] = req_np[int(req_starts[lo]) : int(req_starts[hi])]
+                v[k - r0, :n] = True
+            req_payloads.extend(_payloads(ops.pack_cells(
+                torch.from_numpy(g).to(device), torch.from_numpy(v).to(device), req_entries,
+                0, 0, n_ctx=1, v4=False)))
+
+    out = _assemble_container(
+        version, block_lines, geo, esc_list, books, req_book, nsym,
+        block_ranges, payloads, req_payloads,
+        [len(s) for s in per_block_syms],
+        ctx_meta=ctx_meta,
+    )
+    ENCODES[version] += 1
+    return out

@@ -1,7 +1,8 @@
 """ctypes binding to the native host runtime (native/libvcfc_host.so).
 
 The port's copy of ``vcfc_tpu/host/native.py``, cut to the entry points
-the port calls.  ``native/`` is the repo's shared C++ host runtime: the
+the port calls (the .vcfc codec's, and the .vcfz container's Huffman
+coders, context merge and flag compaction).  ``native/`` is the repo's shared C++ host runtime: the
 library is built from ``native/vcfc_host.cpp`` with ``make -C native
 libvcfc_host.so`` at first use, under a lock so that concurrent processes
 build it once.  It provides thread-parallel byte plumbing around the device
@@ -33,6 +34,8 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i64 = ctypes.c_int64
+_i32 = ctypes.c_int32
+_u32p = ctypes.POINTER(ctypes.c_uint32)
 
 _SIGNATURES = {  # entry point -> (restype, argtypes)
     "vcfc_scan": (_i64, [_u8p, _i64, _i64, _i64, _i64p, _i32p, _i32p]),
@@ -55,6 +58,11 @@ _SIGNATURES = {  # entry point -> (restype, argtypes)
     "vcfc_count_lines": (_i64, [_u8p, _i64, _i64, _i64, _i64p]),
     "vcfc_index_lines": (None, [_u8p, _i64, _i64, _i64, _i64p, _i64p, _i64p, _i64p]),
     "vcfc_classify": (None, [_u8p, _i64p, _i64p, _i64, _i64, _u8p, _u8p]),
+    "vcfz_huffman_decode": (_i64, [_u8p, _i64, _i64, _i32p, _u8p, _i32, _i32p]),
+    "vcfz_huffman_decode_ctx": (_i64, [_u8p, _i64, _i64, _i32p, _u8p, _u8p, _i32, _i32, _i32p]),
+    "vcfz_huffman_encode_ctx": (_i64, [_i32p, _i64, _u32p, _u8p, _u8p, _i32, _i64, _u8p, _i64]),
+    "vcfz_merge_ctx": (_i64, [_i32p, _i64p, _i32, _u8p, _i64, _i32, _i64, _i32p]),
+    "vcfc_compact_flags": (None, [_u8p, _i64, _i64, _i64p, _u8p]),
 }
 
 
@@ -308,3 +316,114 @@ def classify(body, sample_start, line_end, S):
         L, S, _ptr(codes, _u8p), _ptr(regular, _u8p),
     )
     return codes, regular
+
+
+def huffman_decode(payload: bytes, n_symbols: int, sym_table: np.ndarray,
+                   len_table: np.ndarray) -> np.ndarray:
+    """Canonical Huffman decode via the flat prefix table."""
+    from ..ops.huffman import MAX_CODE_LEN
+
+    lib = _load()
+    buf = np.frombuffer(payload, np.uint8)
+    out = np.empty(n_symbols, np.int32)
+    sym_table = np.ascontiguousarray(sym_table, np.int32)
+    len_table = np.ascontiguousarray(len_table, np.uint8)
+    r = lib.vcfz_huffman_decode(
+        _ptr(buf, _u8p), len(buf), n_symbols,
+        _ptr(sym_table, _i32p), _ptr(len_table, _u8p), MAX_CODE_LEN,
+        _ptr(out, _i32p),
+    )
+    if r != 0:
+        raise ValueError("invalid Huffman stream")
+    return out
+
+
+def vcfz_merge_ctx(
+    flat: np.ndarray,
+    offsets: np.ndarray,
+    class_of: np.ndarray,
+    ctx_init: int,
+    total: int,
+) -> np.ndarray:
+    """Replay the v7 context automaton over concatenated per-context
+    sub-streams (vcfc_host.cpp::vcfz_merge_ctx)."""
+    lib = _load()
+    flat = np.ascontiguousarray(flat, np.int32)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    class_of = np.ascontiguousarray(class_of, np.uint8)
+    out = np.empty(total, np.int32)
+    r = lib.vcfz_merge_ctx(
+        _ptr(flat, _i32p), _ptr(offsets, _i64p), len(offsets) - 1,
+        _ptr(class_of, _u8p), len(class_of), ctx_init, total,
+        _ptr(out, _i32p),
+    )
+    if r != 0:
+        raise ValueError("corrupt .vcfz v7: context sub-stream underrun")
+    return out.astype(np.int64)
+
+
+def huffman_decode_ctx(
+    payload: bytes,
+    n_symbols: int,
+    sym_tables: np.ndarray,
+    len_tables: np.ndarray,
+    class_of: np.ndarray,
+    ctx_init: int,
+) -> np.ndarray:
+    """Context-switching canonical Huffman decode (.vcfz v2): tables are
+    (N_CTX, 2^MAX_CODE_LEN) arrays; the class of each decoded symbol
+    selects the next table."""
+    from ..ops.huffman import MAX_CODE_LEN
+
+    lib = _load()
+    buf = np.frombuffer(payload, np.uint8)
+    out = np.empty(n_symbols, np.int32)
+    sym_tables = np.ascontiguousarray(sym_tables, np.int32)
+    len_tables = np.ascontiguousarray(len_tables, np.uint8)
+    class_of = np.ascontiguousarray(class_of, np.uint8)
+    r = lib.vcfz_huffman_decode_ctx(
+        _ptr(buf, _u8p), len(buf), n_symbols,
+        _ptr(sym_tables, _i32p), _ptr(len_tables, _u8p), _ptr(class_of, _u8p),
+        ctx_init, MAX_CODE_LEN, _ptr(out, _i32p),
+    )
+    if r != 0:
+        raise ValueError("invalid Huffman stream")
+    return out
+
+
+def compact_flags(flagpos: np.ndarray, nflags: np.ndarray) -> np.ndarray:
+    """Per-line nonzero flag bytes in sample order, concatenated (the
+    .vcfz symbol extraction; thread-parallel over lines)."""
+    lib = _load()
+    flagpos = np.ascontiguousarray(flagpos, np.uint8)
+    L, W = flagpos.shape
+    base = np.zeros(L, np.int64)
+    if L > 1:
+        np.cumsum(nflags[:-1], out=base[1:], dtype=np.int64)
+    out = np.empty(int(nflags.sum()), np.uint8)
+    lib.vcfc_compact_flags(_ptr(flagpos, _u8p), L, W, _ptr(base, _i64p), _ptr(out, _u8p))
+    return out
+
+
+def huffman_encode_ctx(
+    symbols: np.ndarray,
+    codes: np.ndarray,  # (n_ctx, alphabet) uint32
+    lengths: np.ndarray,  # (n_ctx, alphabet) uint8
+    class_of: np.ndarray,
+    ctx_init: int,
+) -> bytes:
+    """Context-switching canonical Huffman bit packing (native)."""
+    lib = _load()
+    symbols = np.ascontiguousarray(symbols, np.int32)
+    codes = np.ascontiguousarray(codes, np.uint32)
+    lengths = np.ascontiguousarray(lengths, np.uint8)
+    class_of = np.ascontiguousarray(class_of, np.uint8)
+    out = np.empty(2 * len(symbols) + 8, np.uint8)  # <= 15 bits/symbol
+    n = lib.vcfz_huffman_encode_ctx(
+        _ptr(symbols, _i32p), len(symbols), _ptr(codes, _u32p),
+        _ptr(lengths, _u8p), _ptr(class_of, _u8p),
+        ctx_init, lengths.shape[1], _ptr(out, _u8p), len(out),
+    )
+    if n < 0:
+        raise ValueError("symbol without a codeword in its context codebook")
+    return out[:n].tobytes()
