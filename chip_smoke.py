@@ -8,15 +8,18 @@ builds the CUDA kernels and the native host library from this checkout,
 then runs, in order, failing (non-zero exit) at the first phase that fails:
 
   1. the card's name and power limit; nvcc builds of csrc/rle_kernels.cu
-     (K1-K4) and csrc/probe_kernels.cu (the ablation probes C1-C7), both
-     started together; make of native/libvcfc_host.so; the 1000 Genomes
-     phase 3 sized cohort
+     (K1-K4), csrc/probe_kernels.cu (the ablation probes C1-C7) and
+     csrc/huffman_kernels.cu (the .vcfz Huffman decode, H1), all started
+     together; make of native/libvcfc_host.so; the 1000 Genomes phase 3
+     sized cohort, its .vcfc by the native host executor and its v1 .vcfz
+     by the host writer
   2. each kernel against its plain PyTorch version on the card, exact on
      every output element, at the engine's batch shapes, on edge cases and
      on the group and round edges of eval.edge_cases (as text words for K3,
      K4, C6 and C7, with bad separators on those edges); C1 and C4 at every
      cells a thread, C4 against K1's outputs and C5 against K2's too, C6
-     and C7 on K3's and K4's cases
+     and C7 on K3's and K4's cases; H1 on eval.huffman_cases and on one
+     decode dispatch of the cohort's v1 block payloads
   3. the routes of the main path on the cohort, each call REPEATS times
      (median and min-max printed): the parse route (K1/K2), the
      VCFC_PARSE=device text route (K3/K4) and the VCFC_UNPACK=device
@@ -37,8 +40,13 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      container decompressed by decompress_vcfz (K2) back to the input and
      one region through query_vcfz equal to a full scan of the input; the
      bytes, both walls, the device busy time, the top device operations and
-     the device time of the ported ops printed per version; then a CLI
-     compress-z (VCFZ_PACK=device) / decompress-z / query-z round trip
+     the device time of the ported ops printed per version; then each
+     container decompress_vcfz(route="device") decodes (1, 5, 8) decoded
+     so, under torch.profiler (H1, then K2), back to the input, the decode
+     counter moved by one, and v2/v3 through the same call to the host
+     decode, the counter unmoved; then a CLI compress-z (VCFZ_PACK=device)
+     / decompress-z / query-z round trip, and a v8 compress-z /
+     decompress-z round trip both under VCFZ_PACK=device
   4. each path's kernels' launch counts from its own run (phase 3's
      routes, phase 3b's codec and dry run, phase 3c's .vcfz path) above zero
   5. each kernel's time and its plain version's (CUDA events, median,
@@ -47,7 +55,8 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      elementwise steps at the card's INT32 rate), K1-K4 in turns with
      their earlier tile designs C4 (16 cells), C5, C6 and C7 and beside a
      device copy of their input plane, with their registers, local memory
-     and resident blocks; and the end-to-end seconds of the routes
+     and resident blocks; H1 on the cohort's v1 decode dispatch; and the
+     end-to-end seconds of the routes
   6. where the time goes, per route: host-clock seconds per layer from
      phase 3's median run, and device busy time from torch.profiler events
      on the CUDA device only (with the batches overlapped, a device
@@ -82,6 +91,7 @@ import torch
 from vcfc_tpu_torch import engine
 from vcfc_tpu_torch.eval import kernel_ceiling
 from vcfc_tpu_torch.eval.bench_codes import gt_codes
+from vcfc_tpu_torch.eval.huffman_cases import decode_cases
 from vcfc_tpu_torch.eval.edge_cases import (
     ESCAPE_WORDS,
     VALID_WORDS,
@@ -93,10 +103,12 @@ from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch.eval.timing import LAUNCHES_PER_TRIAL, TRIALS, in_turns, median_ms, rotated
 from vcfc_tpu_torch.format import vcfz
 from vcfc_tpu_torch.format.vcf import parse_metadata_headers
-from vcfc_tpu_torch.format.vcfz_device import DEVICE_VERSIONS, ENCODES
+from vcfc_tpu_torch.format import vcfz_device as vcfz_route
+from vcfc_tpu_torch.format.vcfz_device import DECODE_VERSIONS, DECODES, DEVICE_VERSIONS, ENCODES
 from vcfc_tpu_torch.host import fast, native
 from vcfc_tpu_torch.host.parse import parse_vcf_bytes
 from vcfc_tpu_torch.ops._build import build
+from vcfc_tpu_torch.ops.cuda_huffman import LAUNCHES as HUFFMAN_LAUNCHES, cuda_decode_bits
 from vcfc_tpu_torch.ops.cuda_rle import (
     LAUNCHES,
     PROBE_CELLS,
@@ -115,6 +127,13 @@ from vcfc_tpu_torch.ops.cuda_rle import (
 )
 from vcfc_tpu_torch.ops.histogram import ctx_flag_histogram, masked_code_histogram
 from vcfc_tpu_torch.ops import vcfz_device
+from vcfc_tpu_torch.ops.huffman_device import (
+    _MAX_DISPATCH_BITS,
+    _split_grid,
+    decode_bits_plain,
+    device_decode_tables,
+    stream_words,
+)
 from vcfc_tpu_torch.ops.probe import roundtrip_plain, scan_only_plain, scan_replaced_plain
 from vcfc_tpu_torch.ops.rle import (
     rle_decode_plain,
@@ -144,6 +163,8 @@ CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,nohead
 TIMED_SHAPE = (2048, 2560)  # one engine batch of the cohort
 SOURCE = "vcfc_tpu_torch/csrc/rle_kernels.cu"
 PROBE_SOURCE = "vcfc_tpu_torch/csrc/probe_kernels.cu"
+HUFFMAN_SOURCE = "vcfc_tpu_torch/csrc/huffman_kernels.cu"
+SOURCES = ("rle_kernels", "probe_kernels", "huffman_kernels")  # built in phase 1
 KERNELS = {  # name -> (kernel, plain version, the TPU kernel it replaces)
     "rle_encode": (cuda_rle_encode, rle_encode_plain, "vcfc_tpu/ops/pallas_rle.py:181"),
     "rle_decode": (cuda_rle_decode, rle_decode_plain, "vcfc_tpu/ops/pallas_rle.py:234"),
@@ -174,9 +195,17 @@ TEXT_PROBES = {
     "probe_tile_text_decode": (cuda_probe_tile_text_decode, text_rle_decode_plain,
                                "vcfc_tpu/ops/pallas_rle.py:292"),
 }
+# H1, the .vcfz device decode: name -> (kernel, plain version, the JAX
+# function it replaces: XLA's three scans, not a Pallas kernel).  It takes
+# (words, limits, idx_adjust, s1=, s2=) and times on a (streams, words) plane.
+DECODE_KERNELS = {
+    "huffman_decode_bits": (cuda_decode_bits, decode_bits_plain,
+                            "vcfc_tpu/ops/huffman_device.py:120"),
+}
 # every kernel held to its plain version: name -> (kernel, plain version,
 # the TPU kernel it replaces)
-CHECKED = {**KERNELS, **{name: probe[:3] for name, probe in PROBES.items()}, **TEXT_PROBES}
+CHECKED = {**KERNELS, **{name: probe[:3] for name, probe in PROBES.items()}, **TEXT_PROBES,
+           **DECODE_KERNELS}
 # K1-K4 beside their earlier tile designs, timed in turns: kernel ->
 # (probe, its cells= or None)
 EARLIER_DESIGN = {"rle_encode": ("probe_blocked_encode", 16),
@@ -188,7 +217,8 @@ CELLS_PROBES = ("probe_scan_only", "probe_blocked_encode")
 # move per cell (each input read once, each output written once) and per
 # row (the int32 per-row outputs) over the H100's published 3.35 TB/s.
 # Every kernel is bound by bytes, so each row of the "kernels" line says
-# bound_by "bytes".
+# bound_by "bytes".  H1's cell is a word of a stream: the word read (4
+# bytes) and its 32 int32 plane entries written (128 bytes).
 HBM_BYTES_PER_S = 3.35e12
 BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
     "rle_encode": (2, 4),
@@ -202,6 +232,7 @@ BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
     "probe_tile_decode": (2, 4),
     "probe_tile_text_encode": (5, 8),
     "probe_tile_text_decode": (6, 4),
+    "huffman_decode_bits": (132, 0),
 }
 # Printed beside the bound by phases 5 and 7, not on the "kernels" line:
 # the plain-op line, the integer operations per cell of a kernel's plain
@@ -215,7 +246,12 @@ BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
 # where, the cummax) and adds the & 0x7F and the cast, 11; C2 swaps the
 # where + cummax of the scan for an & and a where, 35 like K1; C3's plain
 # version is K1's then K2's, 35 + 25; C4's is K1's, C5's K2's, C6's K3's
-# and C7's K4's.
+# and C7's K4's.  H1's plain version per word: per bit the window's 3
+# (shift, mask, cast), 104 in _lens_and_syms (14 x compare, cast, add; 15 x
+# shift, add, eq, where; the two fills), pass A's 4 on each of 15 states
+# and 1 on the length (61), pass C's 6 and the output's 3, 177 a bit, 5,664
+# a word, and the word's own 5 (widen, mask, shifted copy, shift, or):
+# 5,669.  Pass B's 77 a segment (under 2 a word at s2 = 2,048) are left out.
 INT32_OPS_PER_SM_PER_CLOCK = 64
 CLOCK_QUERY = ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]
 PLAIN_OPS = {  # name -> the plain version's operations per cell
@@ -230,6 +266,7 @@ PLAIN_OPS = {  # name -> the plain version's operations per cell
     "probe_tile_decode": 25,
     "probe_tile_text_encode": 59,
     "probe_tile_text_decode": 37,
+    "huffman_decode_bits": 5669,
 }
 ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK", "VCFC_SHARDED", "VCFZ_PACK")
 # route -> its environment, its kernels, host-clock layers per engine call
@@ -271,15 +308,27 @@ ROUTES = {
 # the codec, K1-K4 in the dry run).
 SHARDED_KERNELS = ("rle_encode", "rle_decode", "text_encode", "text_decode")
 
-# The .vcfz path (phase 3c): the versions its device route encodes, the
-# kernels the path launches (K1 in engine.compress, K2 in decompress_vcfz),
+# The .vcfz path (phase 3c): the versions its device route encodes and
+# decodes, the kernels the path launches (K1 in engine.compress, K2 in
+# decompress_vcfz, H1 in the device decode; its three CUDA kernels, the
+# passes, are attributed by name in the profile),
 # the PyTorch ops of ops.vcfz_device whose device time the profile
 # attributes (each call wrapped in a record_function of its name; ctx_plane
 # also runs inside pack_cells where the pack has four contexts, v2 and v3,
 # and is part of its time there), and the query-z region: the CHROM and
 # POS of the middle line of the CLI prefix, to VCFZ_REGION_SPAN bases on.
 VCFZ_VERSIONS = DEVICE_VERSIONS
-VCFZ_KERNELS = ("rle_encode", "rle_decode")
+VCFZ_DECODE_VERSIONS = DECODE_VERSIONS
+VCFZ_KERNELS = ("rle_encode", "rle_decode", "huffman_decode_bits")
+HUFFMAN_PASSES = ("huffman_segment_maps", "huffman_chain", "huffman_emit")
+# host-clock layers of decompress_vcfz: the host route's (the native Huffman
+# decode runs inside the line assembly) and the device route's
+HOST_DECODE_LAYERS = {"line assembly": (vcfz.VcfzReader, "block_lines_vcfc"),
+                      "engine.decompress": (engine, "decompress")}
+DEVICE_DECODE_LAYERS = {"entropy decode": (vcfz_route, "device_unpack_symbols"),
+                        "context merge": (vcfz_route, "_merge_ctx_streams"),
+                        **HOST_DECODE_LAYERS}
+VCFZ_CLI_VERSION = 8  # the version of the CLI's device decode round trip
 VCFZ_OPS = ("sympos_v3", "ctx_plane", "pack_cells")
 VCFZ_REGION_SPAN = 20_000
 TOP_DEVICE_OPS = 5
@@ -298,8 +347,8 @@ def phase1_build():
           f"{torch.cuda.get_device_name(0)}, {torch.get_num_threads()} intra-op threads, "
           f"{os.cpu_count()} CPUs")
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        paths = list(pool.map(build, ("rle_kernels", "probe_kernels")))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, started together
+        paths = list(pool.map(build, SOURCES))
     print(f"phase 1: built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t:.1f} s")
     subprocess.run(["make", "-C", str(REPO / "native"), "libvcfc_host.so"],
@@ -427,6 +476,20 @@ def probe_cases():
     return cases
 
 
+def cohort_dispatch(v1: bytes):
+    """The first decode dispatch of a v1 container's block payloads, as
+    device_unpack_symbols builds it: (words (B, W) int32, limits,
+    idx_adjust, s1, s2, the blocks in the container)."""
+    reader = vcfz.VcfzReader.parse(v1)
+    base = reader.payload_base
+    payloads = [bytes(reader.raw[base + b["payload_off"] : base + b["payload_off"]
+                                 + b["payload_len"]]) for b in reader.blocks]
+    s1, s2 = _split_grid(max(len(p) for p in payloads) * 8)
+    group = max(_MAX_DISPATCH_BITS // (s1 * s2), 1)
+    limits, adjust, _ = device_decode_tables(reader.books[0])
+    return stream_words(payloads[:group], s1, s2), limits, adjust, s1, s2, len(payloads)
+
+
 def _compare(got, want):
     torch.cuda.synchronize()
     mismatches = sum(int((a != b).sum()) for a, b in zip(got, want))
@@ -434,7 +497,7 @@ def _compare(got, want):
     return mismatches, err
 
 
-def phase2_kernels(rng, vcf):
+def phase2_kernels(rng, vcf, dispatch):
     stats = {name: {"cases": 0, "mismatches": 0, "max_abs_err": 0}
              for name in CHECKED}
 
@@ -485,6 +548,23 @@ def phase2_kernels(rng, vcf):
         check("probe_scan_replaced", case, x, n)
         check("probe_roundtrip", case, x, n)
     check("probe_roundtrip", "width 65536", torch.from_numpy(gt_codes(16, 65536, 3)).cuda(), 65500)
+    words, limits, adjust, s1, s2, _blocks = dispatch
+    cases = [(name, w, *device_decode_tables(book)[:2], c1, c2)
+             for name, w, book, c1, c2 in decode_cases()]
+    cases.append((f"cohort v1 dispatch {words.shape[0]}x{words.shape[1]} words (s1={s1}, "
+                  f"s2={s2})", words, limits, adjust, s1, s2))
+    kernel, plain = CHECKED["huffman_decode_bits"][:2]
+    for case, w, lim, adj, c1, c2 in cases:
+        x = torch.from_numpy(w).cuda()
+        mism, err = _compare([kernel(x, lim, adj, s1=c1, s2=c2)],
+                             [plain(x, lim, adj, s1=c1, s2=c2)])
+        st = stats["huffman_decode_bits"]
+        st["cases"] += 1
+        st["mismatches"] += mism
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        if mism:
+            print(f"phase 2: huffman_decode_bits {case}: {mism} mismatching elements")
+        del x
     for name, st in stats.items():
         print(f"phase 2: {name}: {st['cases']} cases, {st['mismatches']} mismatching elements, "
               f"max abs error {st['max_abs_err']}")
@@ -789,25 +869,89 @@ def annotated(mod, labels):
 
 def _cli_vcfz_round_trip(prefix: bytes, region: str):
     """compress-z under VCFZ_PACK=device (the device route; K1 first), then
-    decompress-z and query-z with VCFZ_PACK unset (the device decode is not
-    ported and refuses), each a CLI process in a temporary directory.
-    Returns (the container, the decompressed VCF, query-z's output)."""
+    decompress-z and query-z with VCFZ_PACK unset (the host decode); then
+    compress-z of VCFZ_CLI_VERSION and decompress-z, both under
+    VCFZ_PACK=device (the device encode and decode), each a CLI process in
+    a temporary directory.  Returns (the container, the decompressed VCF,
+    query-z's output, the VCFZ_CLI_VERSION container, its decompressed
+    VCF)."""
+    device = {"VCFZ_PACK": "device"}
     with tempfile.TemporaryDirectory() as tmp:
-        src, mid, out = (os.path.join(tmp, f) for f in ("in.vcf", "in.vcfz", "out.vcf"))
+        src, mid, out, mid2, out2 = (os.path.join(tmp, f) for f in (
+            "in.vcf", "in.vcfz", "out.vcf", "in2.vcfz", "out2.vcf"))
         with open(src, "wb") as f:
             f.write(prefix)
-        _cli(tmp, ["compress-z", src, mid], {"VCFZ_PACK": "device"}, "phase 3c")
+        _cli(tmp, ["compress-z", src, mid], device, "phase 3c")
         _cli(tmp, ["decompress-z", mid, out], {}, "phase 3c")
         queried = _cli(tmp, ["query-z", mid, region], {}, "phase 3c")
-        with open(mid, "rb") as f:
-            container = f.read()
-        with open(out, "rb") as f:
-            return container, f.read(), queried
+        _cli(tmp, ["compress-z", src, mid2, str(VCFZ_CLI_VERSION)], device, "phase 3c")
+        _cli(tmp, ["decompress-z", mid2, out2], device, "phase 3c")
+        outputs = []
+        for path in (mid, out, mid2, out2):
+            with open(path, "rb") as f:
+                outputs.append(f.read())
+        container, back, container2, back2 = outputs
+        return container, back, queried, container2, back2
+
+
+def _huffman_device_ms(by_name) -> dict:
+    """H1's device ms in a profile, by pass (its three kernels, by name)."""
+    return {p: sum(ms for name, ms in by_name.items() if p in name) for p in HUFFMAN_PASSES}
+
+
+def _seconds(layers) -> str:
+    return ", ".join(f"{layer} {s:.3f} s" for layer, s in layers.items())
+
+
+def _device_decode(host: bytes, version: int, vcf: bytes, decompress_s: float) -> dict:
+    """decompress_vcfz(route="device") of one container under
+    torch.profiler: the input restored and DECODES[version] moved by one
+    (by none for the versions the route leaves to the host decode)."""
+    before = HUFFMAN_LAUNCHES["huffman_decode_bits"]
+    decoded = dict(DECODES)
+    if version not in VCFZ_DECODE_VERSIONS:
+        t = time.perf_counter()
+        back = vcfz.decompress_vcfz(host, route="device")
+        wall_s = time.perf_counter() - t
+        if back != vcf:
+            raise SystemExit(f"phase 3c: v{version}: decompress_vcfz(route='device') does not "
+                             "restore the input")
+        if DECODES != decoded or HUFFMAN_LAUNCHES["huffman_decode_bits"] != before:
+            raise SystemExit(f"phase 3c: v{version}: the device decode ran on a context-coded "
+                             f"container: {DECODES}")
+        print(f"phase 3c: v{version}: decompress_vcfz(route='device') {wall_s:.3f} s takes the "
+              f"host decode (a context-coded container), restores the input; the decode "
+              f"counter did not move {dict(DECODES)}")
+        return {"device_decode": "host", "device_decode_route_s": wall_s}
+    back = []
+    with layer_clock(DEVICE_DECODE_LAYERS) as layers:
+        wall, busy, kinds, by_name, _ = _device_busy(
+            lambda: back.append(vcfz.decompress_vcfz(host, route="device")))
+    if back[0] != vcf:
+        raise SystemExit(f"phase 3c: v{version}: decompress_vcfz(route='device') does not "
+                         "restore the input")
+    if DECODES[version] != decoded[version] + 1:
+        raise SystemExit(f"phase 3c: v{version}: the device decode's counter reads "
+                         f"{DECODES[version]}, not {decoded[version] + 1}")
+    launches = HUFFMAN_LAUNCHES["huffman_decode_bits"] - before
+    passes = _huffman_device_ms(by_name)
+    kernel_ms = sum(passes.values())
+    print(f"phase 3c: v{version}: decompress_vcfz(route='device') {wall / 1e3:.3f} s (profiled) "
+          f"against the host route's {decompress_s:.3f} s, restores the input, counter 1; "
+          f"host clock: {_seconds(layers)}; device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.4f} ("
+          + ", ".join(f"{kind} {ms:.3f}" for kind, ms in kinds.items())
+          + f" ms); huffman_decode_bits {launches} launches, {kernel_ms:.3f} ms on the device ("
+          + ", ".join(f"{p} {ms:.3f}" for p, ms in passes.items()) + " ms)")
+    return {"device_decode_route_s": wall / 1e3, "device_decode_busy_ms": busy,
+            "device_decode_idle_share": 1 - busy / wall, "device_decode_kinds_ms": kinds,
+            "device_decode_layers_s": layers, "huffman_decode_bits_ms": kernel_ms,
+            "huffman_decode_bits_passes_ms": passes, "huffman_decode_bits_launches": launches}
 
 
 def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
     """The .vcfz path on the cohort, the counts set to 0 just before and
-    read just after; then the CLI round trip.  Returns (the counts,
+    read just after; then the CLI round trips.  Returns (the counts,
     {version: its numbers})."""
     card = subprocess.run(CARD_QUERY, check=True, capture_output=True, text=True).stdout.strip()
     region = vcfz_region(prefix)
@@ -815,10 +959,9 @@ def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
     region_lines = want_region.count(b"\n")
     labels = {name: f"ops.vcfz_device.{name}" for name in VCFZ_OPS}
     start = time.perf_counter()
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    for version in ENCODES:
-        ENCODES[version] = 0
+    for counts in (LAUNCHES, HUFFMAN_LAUNCHES, ENCODES, DECODES):
+        for name in counts:
+            counts[name] = 0
     t = time.perf_counter()
     vcfc = engine.compress(vcf)
     compress_s = time.perf_counter() - t
@@ -843,9 +986,10 @@ def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
         if ENCODES[version] != 1:
             raise SystemExit(f"phase 3c: v{version}: the device route's counter reads "
                              f"{ENCODES[version]}, not 1: the route fell back to the host writer")
-        t = time.perf_counter()
-        back = vcfz.decompress_vcfz(host)
-        decompress_s = time.perf_counter() - t
+        with layer_clock(HOST_DECODE_LAYERS) as decompress_layers:
+            t = time.perf_counter()
+            back = vcfz.decompress_vcfz(host)
+            decompress_s = time.perf_counter() - t
         if back != vcf:
             raise SystemExit(f"phase 3c: v{version}: decompress_vcfz does not restore the input")
         del back
@@ -861,26 +1005,35 @@ def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
             "vcfz_bytes": len(host), "host_writer_s": host_s, "device_route_s": wall / 1e3,
             "device_busy_ms": busy, "device_idle_share": 1 - busy / wall, "kinds_ms": kinds,
             "ops_device_ms": ops, "top_device_ops_ms": dict(top),
-            "decompress_vcfz_s": decompress_s, "query_vcfz_s": query_s}
+            "decompress_vcfz_s": decompress_s, "decompress_vcfz_layers_s": decompress_layers,
+            "query_vcfz_s": query_s}
         print(f"phase 3c: v{version}: {len(host):,} bytes; host writer {host_s:.3f} s, device "
               f"route {wall / 1e3:.3f} s (profiled), bytes equal, counter 1; device busy "
               f"{busy:.3f} ms, idle share {1 - busy / wall:.4f} ("
               + ", ".join(f"{kind} {ms:.3f}" for kind, ms in kinds.items())
               + " ms); ops " + ", ".join(f"{name} {ms:.3f}" for name, ms in ops.items())
-              + " ms; decompress_vcfz " + f"{decompress_s:.3f} s restores the input; query_vcfz "
+              + " ms; decompress_vcfz " + f"{decompress_s:.3f} s ({_seconds(decompress_layers)}) "
+              + "restores the input; query_vcfz "
               + f"{query_s:.3f} s equals the full scan; top device ops: "
               + "; ".join(f"{name[:80]} {ms:.3f} ms" for name, ms in top))
+        results[version].update(_device_decode(host, version, vcf, decompress_s))
         del host, device_out
-    counts = dict(LAUNCHES)
-    print(f"phase 3c: launches over the .vcfz path {counts}; device encodes {dict(ENCODES)}")
-    container, back, queried = _cli_vcfz_round_trip(prefix, region)
+    counts = {**LAUNCHES, **HUFFMAN_LAUNCHES}
+    print(f"phase 3c: launches over the .vcfz path {counts}; device encodes {dict(ENCODES)}; "
+          f"device decodes {dict(DECODES)}")
+    container, back, queried, container2, back2 = _cli_vcfz_round_trip(prefix, region)
     queried_lines = queried.count(b"\n")
-    if (container != vcfz.vcfz_from_vcfc(host_reference(prefix)) or back != prefix
+    prefix_vcfc = host_reference(prefix)
+    if (container != vcfz.vcfz_from_vcfc(prefix_vcfc) or back != prefix
             or queried != full_scan(prefix, region)):
         raise SystemExit("phase 3c: CLI compress-z / decompress-z / query-z round trip differs")
+    if container2 != vcfz.vcfz_from_vcfc(prefix_vcfc, version=VCFZ_CLI_VERSION) or back2 != prefix:
+        raise SystemExit(f"phase 3c: CLI v{VCFZ_CLI_VERSION} compress-z / decompress-z round trip "
+                         "under VCFZ_PACK=device differs")
     print(f"phase 3c: CLI compress-z (VCFZ_PACK=device) / decompress-z / query-z round trip ok "
           f"({CLI_LINES} lines, {len(container):,} bytes, {queried_lines} lines queried); "
-          f"phase 3c in {time.perf_counter() - start:.1f} s")
+          f"v{VCFZ_CLI_VERSION} compress-z / decompress-z under VCFZ_PACK=device ok "
+          f"({len(container2):,} bytes); phase 3c in {time.perf_counter() - start:.1f} s")
     return counts, results
 
 
@@ -911,6 +1064,28 @@ def _kernel_row(name, source, replaces, launches, stats, shape, ms, plain_ms):
             "mismatches": stats[name]["mismatches"], "shape": list(shape), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound(name, *shape), "bound_by": "bytes",
             "library_ms": None}
+
+
+def phase5_huffman(dispatch, stats, launches, int_rate):
+    """H1 on the cohort's v1 decode dispatch, beside its plain version on
+    the card (a few calls: each is some ten thousand launches); returns its
+    row of the "kernels" line."""
+    words, limits, adjust, s1, s2, blocks = dispatch
+    B, W = words.shape
+    x = torch.from_numpy(words).cuda()
+    xs = rotated(x)
+    ms = median_ms(lambda w, _n: cuda_decode_bits(w, limits, adjust, s1=s1, s2=s2), xs, 0)
+    plain_ms = median_ms(lambda w, _n: decode_bits_plain(w, limits, adjust, s1=s1, s2=s2),
+                         xs, 0, trials=3, launches=1)
+    row = _kernel_row("huffman_decode_bits", HUFFMAN_SOURCE, DECODE_KERNELS[
+        "huffman_decode_bits"][2], launches["huffman_decode_bits"], stats, (B, W), ms, plain_ms)
+    print(f"phase 5: huffman_decode_bits on the cohort's v1 decode dispatch ({B} of its {blocks} "
+          f"block payloads, {W} words = s1 {s1} x s2 {s2} bits each): kernel {ms:.5f} ms (median "
+          f"of {TRIALS} trials of {LAUNCHES_PER_TRIAL} launches, cycling through {len(xs)} copies "
+          f"of the words), plain {plain_ms:.5f} ms (median of 3 calls), bound "
+          f"{row['bound_ms']:.5f} ms by bytes ({row['bound_ms'] / ms:.1%} of the kernel's time), "
+          f"plain-op line {plain_ops_ms('huffman_decode_bits', B, W, int_rate):.5f} ms")
+    return row
 
 
 def phase5_times(vcf, stats, launches, int_rate):
@@ -1136,9 +1311,14 @@ def main() -> int:
         return 1
     wall = time.perf_counter()
     vcf = phase1_build()
-    rng = np.random.default_rng(SEED)
-    stats = phase2_kernels(rng, vcf)
     reference = host_reference(vcf)
+    t = time.perf_counter()
+    dispatch = cohort_dispatch(vcfz.vcfz_from_vcfc(reference, version=1))
+    print(f"phase 1: the cohort's v1 .vcfz by the host writer and its first decode dispatch "
+          f"({dispatch[0].shape[0]} streams x {dispatch[0].shape[1]} words) in "
+          f"{time.perf_counter() - t:.1f} s")
+    rng = np.random.default_rng(SEED)
+    stats = phase2_kernels(rng, vcf, dispatch)
     prefix = cli_prefix(vcf)
     runs = phase3_main_path(vcf, reference, prefix)
     sharded_counts, sharded_times = phase3b_sharded(vcf, reference, prefix,
@@ -1162,6 +1342,8 @@ def main() -> int:
 
     int_rate = int32_ops_per_s()
     kernel_rows = phase5_times(vcf, stats, launches, int_rate)
+    kernel_rows.append(phase5_huffman(dispatch, stats, launches, int_rate))
+    del dispatch
     for row in kernel_rows:
         row["launches_by_path"] = launches_by_path.get(row["name"], {})
     text_bytes = SAMPLES * LINES * 4  # "a|b\t" per genotype cell

@@ -5,11 +5,12 @@ plain-op line and its "kernels" rows can be held to numbers worked out by
 hand; its main() refuses to run without a CUDA device.
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from vcfc_tpu_torch.ops import cuda_rle
+from vcfc_tpu_torch.ops import cuda_huffman, cuda_rle
 
 INT32_RATE = 64 * 132 * 1980e6  # 64 lanes per SM per clock x 132 SMs x 1,980 MHz
 
@@ -25,6 +26,9 @@ INT32_RATE = 64 * 132 * 1980e6  # 64 lanes per SM per clock x 132 SMs x 1,980 MH
         ("text_decode", 2048, 2560, 6 * 2048 * 2560 + 4 * 2048),
         ("probe_tile_text_encode", 2048, 2560, 5 * 2048 * 2560 + 8 * 2048),
         ("probe_tile_text_decode", 2048, 2560, 6 * 2048 * 2560 + 4 * 2048),
+        # a cohort decode dispatch: 129 streams of 16,256 words, each word
+        # read and its 32 int32 plane entries written
+        ("huffman_decode_bits", 129, 16256, 129 * 16256 * (4 + 32 * 4)),
     ],
 )
 def test_bound_is_the_bytes_at_the_memory_rate(name, L, W, nbytes):
@@ -38,7 +42,8 @@ def test_k1_bound_at_one_engine_batch():
 @pytest.mark.parametrize("name,ops", [("rle_encode", 35), ("rle_decode", 25),
                                       ("probe_tile_decode", 25), ("probe_roundtrip", 60),
                                       ("probe_tile_text_encode", 59),
-                                      ("probe_tile_text_decode", 37)])
+                                      ("probe_tile_text_decode", 37),
+                                      ("huffman_decode_bits", 5669)])
 def test_plain_op_line(name, ops):
     got = chip_smoke.plain_ops_ms(name, 2048, 2560, INT32_RATE)
     assert got == pytest.approx(ops * 2048 * 2560 / INT32_RATE * 1e3, rel=1e-12)
@@ -46,9 +51,12 @@ def test_plain_op_line(name, ops):
 
 def test_every_kernel_and_probe_has_terms_a_count_and_a_row():
     names = list(chip_smoke.CHECKED)
-    assert names == [*chip_smoke.KERNELS, *chip_smoke.PROBES, *chip_smoke.TEXT_PROBES]
+    assert names == [*chip_smoke.KERNELS, *chip_smoke.PROBES, *chip_smoke.TEXT_PROBES,
+                     *chip_smoke.DECODE_KERNELS]
+    assert "huffman_decode_bits" in names
     assert (set(names) == set(chip_smoke.BOUND_BYTES) == set(chip_smoke.PLAIN_OPS)
-            == set(cuda_rle.LAUNCHES))
+            == set(cuda_rle.LAUNCHES) | set(cuda_huffman.LAUNCHES))
+    assert not set(cuda_rle.LAUNCHES) & set(cuda_huffman.LAUNCHES)
     stats = {name: {"max_abs_err": 0, "mismatches": 0} for name in names}
     for name in names:
         row = chip_smoke._kernel_row(name, "src", "file:1", 3, stats, (2048, 2560), 0.01, 0.5)
@@ -112,16 +120,78 @@ def test_the_sharded_path_and_every_device_layer_are_counted():
 
 def test_vcfz_phase_runs_every_device_version_and_reads_the_routes_counter():
     """Phase 3c writes each version the device route encodes and reads the
-    counter the route itself moves; its path launches K1 and K2."""
+    counter the route itself moves; it decodes on the device the versions
+    the decode takes (v1, v5, v8) and reads that counter too; its path
+    launches K1, K2 and the Huffman decode."""
     from vcfc_tpu_torch.format import vcfz_device
     from vcfc_tpu_torch.ops import vcfz_device as ops
 
     assert chip_smoke.VCFZ_VERSIONS == vcfz_device.DEVICE_VERSIONS == (1, 2, 3, 5, 8)
     assert chip_smoke.ENCODES is vcfz_device.ENCODES
     assert set(vcfz_device.ENCODES) == set(chip_smoke.VCFZ_VERSIONS)
-    assert set(chip_smoke.VCFZ_KERNELS) == {"rle_encode", "rle_decode"}
-    assert set(chip_smoke.VCFZ_KERNELS) <= set(chip_smoke.KERNELS)
+    assert chip_smoke.VCFZ_DECODE_VERSIONS == vcfz_device.DECODE_VERSIONS == (1, 5, 8)
+    assert chip_smoke.DECODES is vcfz_device.DECODES
+    assert set(chip_smoke.VCFZ_DECODE_VERSIONS) <= set(chip_smoke.VCFZ_VERSIONS)
+    assert chip_smoke.VCFZ_CLI_VERSION in chip_smoke.VCFZ_DECODE_VERSIONS
+    assert chip_smoke.HUFFMAN_LAUNCHES is cuda_huffman.LAUNCHES
+    assert set(chip_smoke.VCFZ_KERNELS) == {"rle_encode", "rle_decode", "huffman_decode_bits"}
+    assert set(chip_smoke.VCFZ_KERNELS) <= set(chip_smoke.CHECKED)
     assert all(callable(getattr(ops, name)) for name in chip_smoke.VCFZ_OPS)
+
+
+def test_huffman_kernel_is_built_and_its_passes_are_named_in_the_source():
+    """Phase 1 builds huffman_kernels.cu; the profile finds H1's three
+    passes by the names its source gives them."""
+    assert "huffman_kernels" in chip_smoke.SOURCES
+    source = (chip_smoke.REPO / chip_smoke.HUFFMAN_SOURCE).read_text()
+    assert all(f"{name}(" in source for name in chip_smoke.HUFFMAN_PASSES)
+    by_name = {"(anonymous namespace)::huffman_emit(unsigned int const*)": 2.0,
+               "huffman_chain": 0.5, "Memcpy DtoH": 9.0}
+    assert chip_smoke._huffman_device_ms(by_name) == {
+        "huffman_segment_maps": 0.0, "huffman_chain": 0.5, "huffman_emit": 2.0}
+
+
+def test_decode_layers_wrap_what_decompress_vcfz_calls(data_dir):
+    """The host-clock layers of phase 3c's decode are the functions the
+    device route and the host route call, so each layer's clock runs."""
+    from vcfc_tpu_torch import engine
+    from vcfc_tpu_torch.format import vcfz
+
+    vcfc = (data_dir / "sv.vcfc").read_bytes()
+    for route, layers in ((None, chip_smoke.HOST_DECODE_LAYERS),
+                          ("device", chip_smoke.DEVICE_DECODE_LAYERS)):
+        z = vcfz.vcfz_from_vcfc(vcfc, block_lines=4, version=8)
+        with chip_smoke.wrapping({"device": (engine, "_device")},
+                                 lambda _n, _f: lambda _d: torch.device("cpu")):
+            with chip_smoke.layer_clock(layers) as seconds:
+                vcfz.decompress_vcfz(z, route=route)
+        assert all(s > 0 for s in seconds.values()), seconds
+
+
+def test_cohort_dispatch_is_the_first_group_device_unpack_symbols_decodes(monkeypatch):
+    """The words of phase 2's and phase 5's cohort case are the first
+    dispatch of a v1 container's payloads: decoded on the CPU and compacted
+    as device_unpack_symbols does, they give each block's symbols."""
+    from vcfc_tpu_torch import engine
+    from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
+    from vcfc_tpu_torch.format import vcfz
+    from vcfc_tpu_torch.ops import huffman_device as hd
+
+    vcfc = engine.compress(generate_realistic_vcf(40, 300, seed=3), force_device=True,
+                           device="cpu")
+    z = vcfz.vcfz_from_vcfc(vcfc, block_lines=32, version=1)
+    monkeypatch.setattr(chip_smoke, "_MAX_DISPATCH_BITS", 4 * 4096)
+    words, limits, adjust, s1, s2, blocks = chip_smoke.cohort_dispatch(z)
+    reader = vcfz.VcfzReader.parse(z)
+    assert blocks == len(reader.blocks) == 10
+    assert words.shape == (4, s1 * s2 // 32) and words.dtype == np.int32
+    plane = hd.decode_bits(torch.from_numpy(words), limits, adjust, s1=s1, s2=s2).numpy()
+    _, _, sorted_syms = hd.device_decode_tables(reader.books[0])
+    for b in range(4):
+        blk = reader.blocks[b]
+        row = plane[b, : blk["payload_len"] * 8]
+        syms = sorted_syms[row[row != 0][: int(blk["n_symbols"])] - 1]
+        np.testing.assert_array_equal(syms, reader._decode_block_symbols(b))
 
 
 def test_vcfz_region_and_full_scan(data_dir):

@@ -14,8 +14,10 @@ import torch
 
 from vcfc_tpu_torch import engine
 from vcfc_tpu_torch.eval.edge_cases import encode_edge_cases, flag_edge_cases, text_edge_cases
+from vcfc_tpu_torch.eval.huffman_cases import decode_cases
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
-from vcfc_tpu_torch.ops import _build, cuda_rle, probe
+from vcfc_tpu_torch.ops import _build, cuda_huffman, cuda_rle, probe
+from vcfc_tpu_torch.ops import huffman_device as hd
 from vcfc_tpu_torch.ops.rle import (
     rle_decode_plain,
     rle_encode_plain,
@@ -30,6 +32,7 @@ P = [0.81, 0.072, 0.072, 0.0264, 0.0196]
 EDGE = encode_edge_cases()
 FLAG_EDGE = flag_edge_cases()
 TEXT_EDGE = text_edge_cases()
+HUFFMAN = decode_cases()
 
 
 @pytest.fixture
@@ -407,3 +410,54 @@ def test_vcfz_device_route_on_cuda_matches_host_writer(cuda_device, monkeypatch,
     monkeypatch.setattr(vcfz_device, "_MAX_CELLS", 16 * 384 * 4)
     assert vcfz_device.vcfz_from_vcfc_device(vcfc, 16, version, device=cuda_device) == want16
     assert vcfz_device.ENCODES[version] == before + 2
+
+
+@pytest.mark.parametrize("case", range(len(HUFFMAN)), ids=[name for name, *_ in HUFFMAN])
+def test_huffman_decode_bits_matches_plain(cuda_device, case):
+    """The Hopper decode against decode_bits_plain, on the card and on the
+    CPU, element by element; decode_bits on a CUDA tensor launches it."""
+    _name, words, book, s1, s2 = HUFFMAN[case]
+    limits, adjust, _ = hd.device_decode_tables(book)
+    x = torch.from_numpy(words).to(cuda_device)
+    before = cuda_huffman.LAUNCHES["huffman_decode_bits"]
+    got = hd.decode_bits(x, limits, adjust, s1=s1, s2=s2)
+    assert cuda_huffman.LAUNCHES["huffman_decode_bits"] == before + 1
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got, hd.decode_bits_plain(x, limits, adjust, s1=s1, s2=s2))
+    assert torch.equal(got.cpu(), hd.decode_bits_plain(torch.from_numpy(words), limits, adjust,
+                                                       s1=s1, s2=s2))
+
+
+def test_huffman_unpack_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """device_unpack_symbols on the card, in one dispatch and in several,
+    equal to the CPU's; a truncated stream raises on both."""
+    from vcfc_tpu_torch.ops.huffman import Codebook, pack_symbols
+
+    rng = np.random.default_rng(31)
+    book = Codebook.from_frequencies(rng.integers(1, 1000, 300))
+    streams = [rng.integers(0, 300, int(rng.integers(1, 20000))) for _ in range(9)]
+    payloads = [pack_symbols(s, book)[0] for s in streams]
+    n = [len(s) for s in streams]
+    for max_bits in (hd._MAX_DISPATCH_BITS, 3 * 65536):
+        monkeypatch.setattr(hd, "_MAX_DISPATCH_BITS", max_bits)
+        got = hd.device_unpack_symbols(payloads, n, book, device=cuda_device)
+        for g, s in zip(got, streams):
+            np.testing.assert_array_equal(g, s)
+    with pytest.raises(ValueError, match="invalid Huffman"):
+        hd.device_unpack_symbols([payloads[0][:3]], [n[0]], book, device=cuda_device)
+
+
+@pytest.mark.parametrize("version", [1, 5, 8])
+def test_vcfz_device_decode_on_cuda(cuda_device, version):
+    """decompress_vcfz(route="device") on the card restores the input; the
+    route's counter and the kernel's launches move."""
+    from vcfc_tpu_torch.format import vcfz, vcfz_device
+
+    vcf = generate_realistic_vcf(300, 1500, seed=15)
+    vcfc = engine.compress(vcf, force_device=True, device="cpu")
+    z = vcfz.vcfz_from_vcfc(vcfc, block_lines=64, version=version)
+    before = (vcfz_device.DECODES[version], cuda_huffman.LAUNCHES["huffman_decode_bits"])
+    assert vcfz_device.vcfz_to_vcfc_device(z, device=cuda_device) == vcfc
+    assert vcfz.decompress_vcfz(z, route="device", device=cuda_device) == vcf
+    assert vcfz_device.DECODES[version] == before[0] + 2
+    assert cuda_huffman.LAUNCHES["huffman_decode_bits"] > before[1]

@@ -242,19 +242,23 @@ def test_cli_usage_messages_and_exit_codes(tmp_path, cpu_cli, capsys, monkeypatc
 
 def test_cli_device_routes_not_ported_exit_2(tmp_path, data_dir, cpu_cli, capsys, monkeypatch):
     """VCFZ_PACK=device: compress-z encodes v1/v2/v3/v5/v8 on the device
-    route (the JAX package's bytes); v4/v6/v7 and decompress-z refuse with
-    exit code 2 and say why."""
+    route (the JAX package's bytes) and decompress-z decodes v8 on it;
+    v4/v6/v7 refuse both with exit code 2 and say why."""
     vcf, vcfc = _corpus("sv", data_dir)
     src, z = tmp_path / "in.vcf", tmp_path / "in.vcfz"
     src.write_bytes(vcf)
     monkeypatch.setenv("VCFZ_PACK", "device")
     assert cli.main(["compress-z", str(src), str(z), "8"]) == 0
     assert z.read_bytes() == jz.vcfz_from_vcfc(vcfc, version=8)
+    assert cli.main(["decompress-z", str(z), str(tmp_path / "out.vcf")]) == 0
+    assert (tmp_path / "out.vcf").read_bytes() == vcf
     assert cli.main(["compress-z", str(src), str(tmp_path / "v4.vcfz"), "4"]) == 2
     assert "not ported" in capsys.readouterr().err
     assert not (tmp_path / "v4.vcfz").exists()
-    assert cli.main(["decompress-z", str(z), str(tmp_path / "out.vcf")]) == 2
+    (tmp_path / "v4.vcfz").write_bytes(jz.vcfz_from_vcfc(vcfc, version=4))
+    assert cli.main(["decompress-z", str(tmp_path / "v4.vcfz"), str(tmp_path / "v4.vcf")]) == 2
     assert "not ported" in capsys.readouterr().err
+    assert not (tmp_path / "v4.vcf").exists()
 
 
 def test_cli_other_verbs_still_exit_2(cpu_cli, capsys):

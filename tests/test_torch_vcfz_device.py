@@ -5,9 +5,11 @@ The ops (``sympos_v3``, ``ctx_plane``, ``pack_cells`` and its segmented
 word sum) are held element by element to the JAX package's on its CPU
 backend: the words (int32, bit 31 included), the emit mask, ``total_bits``
 and ``bad``.  The route (``device="cpu"``) is held byte for byte to the JAX
-package's host writer for v1, v2, v3, v5 and v8; v4, v6 and v7, and the
-device decode, raise NotImplementedError.  The shapes stay small: XLA's CPU
-compile of ``pack_cells`` is slow.
+package's host writer for v1, v2, v3, v5 and v8; v4, v6 and v7 raise
+NotImplementedError.  The device decode (``vcfz_to_vcfc_device``) is held
+to the JAX package's and to the host reconstruction for v1, v5 and v8;
+v2/v3 return None, v4/v6/v7 raise NotImplementedError.  The shapes stay
+small: XLA's CPU compile of ``pack_cells`` is slow.
 """
 
 import jax.numpy as jnp
@@ -16,8 +18,9 @@ import pytest
 import torch
 
 from test_fuzz import make_vcf
-from vcfc_tpu.format import compress_bytes
+from vcfc_tpu.format import compress_bytes, decompress_bytes
 from vcfc_tpu.format import vcfz as jz
+from vcfc_tpu.format import vcfz_device as jdz
 from vcfc_tpu.ops import huffman as jh
 from vcfc_tpu.ops import vcfz_device as jd
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
@@ -278,12 +281,93 @@ def test_vertical_versions_raise_on_the_route(version, monkeypatch):
 
 
 def test_device_decode_raises(monkeypatch):
-    z = jz.vcfz_from_vcfc(_fuzz_vcfc(502, 20, 30), version=5)
-    with pytest.raises(NotImplementedError, match="device decode"):
-        tz.decompress_vcfz(z, route="device", device=CPU)
+    """The device decode decodes v5 and refuses v4, v6 and v7 (the
+    vertical-match resolve), through route= and through VCFZ_PACK."""
+    vcfc = _fuzz_vcfc(502, 20, 30)
+    z = jz.vcfz_from_vcfc(vcfc, version=5)
+    vcf = decompress_bytes(vcfc)
+    assert tz.decompress_vcfz(z, route="device", device=CPU) == vcf
     monkeypatch.setenv("VCFZ_PACK", "device")
-    with pytest.raises(NotImplementedError, match="device decode"):
-        tz.decompress_vcfz(z, device=CPU)
+    assert tz.decompress_vcfz(z, device=CPU) == vcf
+    for version in (4, 6, 7):
+        z = jz.vcfz_from_vcfc(vcfc, version=version)
+        with pytest.raises(NotImplementedError, match="ROADMAP A.2.3"):
+            tz.decompress_vcfz(z, device=CPU)
+        with pytest.raises(NotImplementedError, match="vertical-match resolve"):
+            tz.decompress_vcfz(z, route="device", device=CPU)
+
+
+# --- the device decode --------------------------------------------------------------
+
+# name -> (the .vcfc, block_lines): the corpora of tests/data, the fuzz
+# corpus and the escape-dense corpus
+DECODE_CORPORA = {
+    "small": (lambda d: compress_bytes((d / "small.vcf").read_bytes()), 32),
+    "sv": (lambda d: compress_bytes((d / "sv.vcf").read_bytes()), 4),
+    "fuzz": (lambda d: _fuzz_vcfc(), None),
+    "escape-dense": (lambda d: _fuzz_vcfc(504, 30, 60, sv_every=3), 16),
+}
+DECODE_VERSIONS = [1, 5, 8]
+
+
+@pytest.mark.parametrize("version", DECODE_VERSIONS)
+@pytest.mark.parametrize("name", list(DECODE_CORPORA))
+def test_device_decode_equals_jax_and_host(name, version, data_dir):
+    """vcfz_to_vcfc_device on the CPU: the JAX package's device decode's
+    bytes and the host reconstruction's; the counter moves by one."""
+    make, block_lines = DECODE_CORPORA[name]
+    vcfc = make(data_dir)
+    z = jz.vcfz_from_vcfc(vcfc, block_lines, version)
+    before = tzd.DECODES[version]
+    got = tzd.vcfz_to_vcfc_device(z, device=CPU)
+    assert tzd.DECODES[version] == before + 1
+    assert got == vcfc == tz.VcfzReader.parse(z).to_vcfc()
+    assert got == jdz.vcfz_to_vcfc_device(z)
+
+
+def test_device_decode_of_the_route_s_own_containers(cohort_vcfc):
+    """Encode on the route, decode on the route: the .vcfc comes back."""
+    for version in DECODE_VERSIONS:
+        z = tz.vcfz_from_vcfc(cohort_vcfc, version=version, route="device", device=CPU)
+        assert tzd.vcfz_to_vcfc_device(z, device=CPU) == cohort_vcfc
+
+
+@pytest.mark.parametrize("version", [2, 3])
+def test_context_coded_versions_take_the_host_decode(version):
+    """v2 and v3 are context-coded: None, as in the JAX package, the counter
+    unmoved, and decompress_vcfz(route="device") decodes on the host."""
+    vcfc = _fuzz_vcfc(505, 40, 60)
+    z = jz.vcfz_from_vcfc(vcfc, version=version)
+    before = dict(tzd.DECODES)
+    assert tzd.vcfz_to_vcfc_device(z, device=CPU) is None
+    assert jdz.vcfz_to_vcfc_device(z) is None
+    assert tz.decompress_vcfz(z, route="device", device=CPU) == decompress_bytes(vcfc)
+    assert tzd.DECODES == before
+
+
+@pytest.mark.parametrize("version", [4, 6, 7])
+def test_vertical_versions_refuse_the_device_decode(version):
+    z = jz.vcfz_from_vcfc(_fuzz_vcfc(506, 30, 40), version=version)
+    before = dict(tzd.DECODES)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2.3"):
+        tzd.vcfz_to_vcfc_device(z, device=CPU)
+    assert tzd.DECODES == before
+
+
+def test_corrupt_payload_raises():
+    """An all-ones payload chains into windows past the book's last
+    canonical limit: ordinals out of range raise, as in the JAX package."""
+    vcfc = compress_bytes(make_vcf(42, 40, 120))
+    z = bytearray(jz.vcfz_from_vcfc(vcfc, version=5))
+    r = jz.VcfzReader.parse(bytes(z))
+    assert int(r.books[0].lengths.max()) < 15
+    blk = r.blocks[0]
+    start = r.payload_base + blk["payload_off"]
+    z[start : start + blk["payload_len"]] = b"\xff" * blk["payload_len"]
+    with pytest.raises(ValueError, match="invalid Huffman"):
+        jdz.vcfz_to_vcfc_device(bytes(z))
+    with pytest.raises(ValueError, match="invalid Huffman"):
+        tzd.vcfz_to_vcfc_device(bytes(z), device=CPU)
 
 
 def test_structural_inputs_take_the_host_writer_and_leave_the_counter():

@@ -26,24 +26,27 @@ def rotated(x: torch.Tensor) -> list[torch.Tensor]:
     return [x.clone() for _ in range(-(-ROTATE_BYTES // x.nbytes))]
 
 
-def median_ms(fn, xs, n) -> float:
+def median_ms(fn, xs, n, trials=TRIALS, launches=LAUNCHES_PER_TRIAL) -> float:
     """Median device time in ms of one call ``fn(x, n)``, the calls taking
-    the inputs xs in turn (CUDA tensors)."""
+    the inputs xs in turn (CUDA tensors): ``trials`` trials of ``launches``
+    calls.  A call that takes longer to enqueue than the sleep lasts (a
+    plain version of many small ops) is timed from its first op's start to
+    its last op's end, host gaps included."""
     fn(xs[0], n)
     torch.cuda.synchronize()
     times = []
     launch = 0
-    for _ in range(TRIALS):
+    for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        for _ in range(LAUNCHES_PER_TRIAL):
+        for _ in range(launches):
             fn(xs[launch % len(xs)], n)
             launch += 1
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / LAUNCHES_PER_TRIAL)
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 

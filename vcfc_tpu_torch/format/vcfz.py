@@ -7,8 +7,10 @@ the port's device encode (``format/vcfz_device.py``, PyTorch ops on a
 ``device``), which covers v1, v2, v3, v5 and v8 and raises
 NotImplementedError for the vertical transform's v4, v6 and v7.
 ``decompress_vcfz`` decodes the reconstructed .vcfc with the port's
-``engine.decompress`` on ``device``; its ``route="device"`` raises
-NotImplementedError.
+``engine.decompress`` on ``device``; its ``route="device"`` entropy-decodes
+v1, v5 and v8 on the device (``vcfz_to_vcfc_device``), takes the host
+reconstruction for v2 and v3, and raises NotImplementedError for v4, v6
+and v7.
 
 A lossless transcoding of `.vcfc`: the per-line sample stream (flag bytes
 plus escape columns) becomes a symbol stream — symbols 0..255 are flag
@@ -1302,19 +1304,21 @@ class VcfzReader:
 
 
 def decompress_vcfz(vcfz: bytes, route: str | None = None, device=None) -> bytes:
-    """`.vcfz` -> VCF text (reconstruct the .vcfc on the host, then the
-    port's engine decodes it on ``device``: None is the CUDA device, where
-    K2 runs).  ``route`` (default: the VCFZ_PACK env var) = "device", the
-    device entropy decode and vertical-match resolve, is not ported yet
-    and raises NotImplementedError."""
+    """`.vcfz` -> VCF text: reconstruct the .vcfc, then the port's engine
+    decodes it on ``device`` (None is the CUDA device, where K2 runs).
+    ``route`` (default: the VCFZ_PACK env var) = "device" entropy-decodes
+    the order-0 streams of v1, v5 and v8 block-parallel on ``device``
+    (format/vcfz_device.py); v2/v3 take the host reconstruction, as in the
+    JAX package, and v4/v6/v7 (the vertical-match resolve, not ported yet)
+    raise NotImplementedError."""
     from .. import engine
 
     if (route or os.environ.get("VCFZ_PACK")) == "device":
-        raise NotImplementedError(
-            "the .vcfz device decode (order-0 entropy decode, vertical-match "
-            "resolve) is not ported to vcfc_tpu_torch yet: ROADMAP A.2, after "
-            "the v4/v6/v7 device encode"
-        )
+        from .vcfz_device import vcfz_to_vcfc_device
+
+        vcfc = vcfz_to_vcfc_device(vcfz, device)
+        if vcfc is not None:
+            return engine.decompress(vcfc, device=device)
     return engine.decompress(VcfzReader.parse(vcfz).to_vcfc(), device=device)
 
 

@@ -1,6 +1,8 @@
-"""Device-route `.vcfz` writer: the port of ``vcfc_tpu/format/vcfz_device.py``'s
-``vcfz_from_vcfc_device`` for the versions without the vertical transform
-(v1, v2, v3, v5 and v8), on the dense path.
+"""Device-route `.vcfz` writer and reader: the port of
+``vcfc_tpu/format/vcfz_device.py``'s ``vcfz_from_vcfc_device`` for the
+versions without the vertical transform (v1, v2, v3, v5 and v8), and of its
+``vcfz_to_vcfc_device`` for the order-0 versions (v1, v5 and v8), on the
+dense path.
 
 The output is BYTE-IDENTICAL to the host writer (``format/vcfz.py``):
 
@@ -28,6 +30,14 @@ the encoders produce).  Without the native library it raises.  v4, v6 and
 v7 (the vertical transform) raise NotImplementedError: they come in the
 next slice (ROADMAP A.2).  Each container the route encodes adds one to
 ``ENCODES[version]``.
+
+The decode (``vcfz_to_vcfc_device``) entropy-decodes every order-0 stream
+of a container block-parallel on the device (``ops.huffman_device``, the
+Hopper kernel of ``csrc/huffman_kernels.cu`` on the card): v1/v5 symbol
+payloads, v8's per-context sub-payloads (re-merged on the host by
+``_merge_ctx_streams``) and the v3+ required-columns payloads; the host
+then assembles the .vcfc lines from the decoded streams.  Each container it
+decodes adds one to ``DECODES[version]``.
 """
 
 from __future__ import annotations
@@ -40,10 +50,20 @@ from ..host import native
 from ..host.fast import parse_vcfc_native
 from ..ops import vcfz_device as ops
 from ..ops.huffman import CTX_INIT, N_CTX, Codebook, context_codebooks
-from .vcfz import _assemble_container, _scan_geometry, _symbol_streams_native, req_codebook
+from ..ops.huffman_device import device_unpack_symbols
+from .vcfz import (
+    VcfzReader,
+    _assemble_container,
+    _merge_ctx_streams,
+    _scan_geometry,
+    _symbol_streams_native,
+    req_codebook,
+)
 
 DEVICE_VERSIONS = (1, 2, 3, 5, 8)  # the versions this route encodes
 ENCODES = dict.fromkeys(DEVICE_VERSIONS, 0)  # version -> containers encoded on the device
+DECODE_VERSIONS = (1, 5, 8)  # the versions this route decodes
+DECODES = dict.fromkeys(DECODE_VERSIONS, 0)  # version -> containers decoded on the device
 
 # cells per pack dispatch: pack_cells holds ~15 working planes, so 16M
 # cells keeps the peak device footprint a few GB (its int64 planes)
@@ -234,3 +254,90 @@ def vcfz_from_vcfc_device(
     )
     ENCODES[version] += 1
     return out
+
+
+def vcfz_to_vcfc_device(vcfz: bytes, device=None) -> bytes | None:
+    """.vcfz -> .vcfc bytes, the order-0 entropy decode on ``device`` (None:
+    the CUDA device; raises without one).
+
+    v1/v5 symbol payloads, v8's per-context sub-payloads (each order-0
+    under its context's book, re-merged on the host by the O(symbols)
+    context automaton) and the v3+ required-columns payloads decode
+    block-parallel through ``device_unpack_symbols``; the host assembles
+    the lines (``block_lines_vcfc``) from the decoded streams.  v2 and v3
+    are context-coded streams, which the JAX package decodes on the host
+    by design: they return None and the caller takes the host
+    reconstruction.  v4, v6 and v7 need the vertical-match resolve on the
+    device, not ported yet: they raise NotImplementedError."""
+    device = engine._device(device)
+    reader = VcfzReader.parse(vcfz)
+    version = reader.version
+    if version in (4, 6, 7):
+        raise NotImplementedError(
+            f".vcfz v{version} decodes through the vertical-match resolve on the device "
+            "(_block_classpos, _resolve_blocks_device, resolve_match_grid), which is not "
+            "ported to vcfc_tpu_torch yet: ROADMAP A.2.3; the host decode (route=None) "
+            "decodes it"
+        )
+    if version not in DECODE_VERSIONS:
+        return None
+    base = reader.payload_base
+    if version == 8:
+        # context-SPLIT streams: every (block, context) sub-payload is
+        # order-0 under its own book, decoded per book on the device
+        per_ctx_payloads: list[list[bytes]] = [[] for _ in range(N_CTX)]
+        per_ctx_counts: list[list[int]] = [[] for _ in range(N_CTX)]
+        for blk in reader.blocks:
+            off = base + blk["payload_off"]
+            for c in range(N_CTX):
+                pl = int(blk["ctx_plen"][c])
+                per_ctx_payloads[c].append(bytes(reader.raw[off : off + pl]))
+                per_ctx_counts[c].append(int(blk["ctx_nsym"][c]))
+                off += pl
+        per_ctx_syms = [
+            device_unpack_symbols(per_ctx_payloads[c], per_ctx_counts[c], reader.books[c], device)
+            for c in range(N_CTX)
+        ]
+        classes = reader._classes()
+        sym_lists = [
+            _merge_ctx_streams([per_ctx_syms[c][b] for c in range(N_CTX)], classes,
+                               int(blk["n_symbols"]))
+            for b, blk in enumerate(reader.blocks)
+        ]
+    else:
+        payloads = [
+            bytes(reader.raw[base + blk["payload_off"] : base + blk["payload_off"] + blk["payload_len"]])
+            for blk in reader.blocks
+        ]
+        n_syms = [int(blk["n_symbols"]) for blk in reader.blocks]
+        sym_lists = device_unpack_symbols(payloads, n_syms, reader.books[0], device)
+
+    req_lists = None
+    if version >= 3:
+        req_payloads, n_req = [], []
+        for b, blk in enumerate(reader.blocks):
+            lo = b * reader.block_lines
+            hi = min(lo + reader.block_lines, reader.n_lines)
+            off = blk["req_payload_off"]
+            req_payloads.append(bytes(reader.req_blob[off : off + blk["req_payload_len"]]))
+            n_req.append(
+                int(reader.req_starts[hi - 1]) + int(reader.req_lens[hi - 1])
+                - int(reader.req_starts[lo])
+                if hi > lo
+                else 0
+            )
+        req_lists = device_unpack_symbols(req_payloads, n_req, reader.req_book, device)
+
+    out = bytearray(reader.header_blob)
+    for b in range(len(reader.blocks)):
+        req_arg = None
+        if req_lists is not None:
+            lo = b * reader.block_lines
+            req_arg = (
+                req_lists[b].astype(np.uint8).tobytes(),
+                int(reader.req_starts[lo]) if reader.n_lines else 0,
+            )
+        for line in reader.block_lines_vcfc(b, req=req_arg, symbols=sym_lists[b]):
+            out += line
+    DECODES[version] += 1
+    return bytes(out)
