@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of the .vcfc codec (vcfc_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, as below
+    python3 chip_smoke.py --compact-ab    # and the A/B of VCFZ_COMPACT in 3c
 
 Needs one CUDA device, nvcc (CUDA_HOME or PATH) and make with g++.  It
 builds the CUDA kernels and the native host library from this checkout,
 then runs, in order, failing (non-zero exit) at the first phase that fails:
 
   1. the card's name and power limit; nvcc builds of csrc/rle_kernels.cu
-     (K1-K4), csrc/probe_kernels.cu (the ablation probes C1-C7) and
-     csrc/huffman_kernels.cu (the .vcfz Huffman decode, H1), all started
+     (K1-K4), csrc/probe_kernels.cu (the ablation probes C1-C7),
+     csrc/huffman_kernels.cu (the .vcfz Huffman decode, H1) and
+     csrc/compact_kernels.cu (the .vcfz row compaction, S1), all started
      together; make of native/libvcfc_host.so; the 1000 Genomes phase 3
      sized cohort, its .vcfc by the native host executor and its v1 .vcfz
      by the host writer
@@ -19,7 +21,9 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      K4, C6 and C7, with bad separators on those edges); C1 and C4 at every
      cells a thread, C4 against K1's outputs and C5 against K2's too, C6
      and C7 on K3's and K4's cases; H1 on eval.huffman_cases and on one
-     decode dispatch of the cohort's v1 block payloads
+     decode dispatch of the cohort's v1 block payloads; S1 on seeded grids
+     (densities 0 to 1, widths no chunk divides) and on that dispatch's
+     plane masked to each stream's bits, values and counts
   3. the routes of the main path on the cohort, each call REPEATS times
      (median and min-max printed): the parse route (K1/K2), the
      VCFC_PARSE=device text route (K3/K4) and the VCFC_UNPACK=device
@@ -35,18 +39,25 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      steps' histograms against the plain CPU histograms of a cohort batch
   3c. the .vcfz path: engine.compress (K1) once, then for each version
      the device route encodes (1, 2, 3, 5, 8) the container written once by
-     the host writer and once by vcfz_from_vcfc(route="device") under
-     torch.profiler, byte-identical, the device counter moved by one; each
-     container decompressed by decompress_vcfz (K2) back to the input and
-     one region through query_vcfz equal to a full scan of the input; the
-     bytes, both walls, the device busy time, the top device operations and
-     the device time of the ported ops printed per version; then each
-     container decompress_vcfz(route="device") decodes (1, 5, 8) decoded
-     so, under torch.profiler (H1, then K2), back to the input, the decode
-     counter moved by one, and v2/v3 through the same call to the host
-     decode, the counter unmoved; then a CLI compress-z (VCFZ_PACK=device)
-     / decompress-z / query-z round trip, and a v8 compress-z /
-     decompress-z round trip both under VCFZ_PACK=device
+     the host writer and by vcfz_from_vcfc(route="device") under
+     torch.profiler once under each VCFZ_COMPACT setting (device, the
+     default on the card, then host), each byte-identical, the device
+     counter moved by one and S1's launches moved under device only; each container decompressed by
+     decompress_vcfz (K2) back to the input and one region through
+     query_vcfz equal to a full scan of the input; the bytes, the walls,
+     the device busy time, the copies (count, bytes and ms by kind, from
+     the profile's trace), the top device operations and the device time
+     of the ported ops printed per run; then each container
+     decompress_vcfz(route="device") decodes (1, 5, 8) decoded so under
+     each setting too, under torch.profiler (H1, S1 under device, then
+     K2), back to the input, the decode counter moved by one, with the
+     host clock of the entropy decode's steps; v2/v3 through the same call
+     to the host decode, the counter unmoved; with --compact-ab, each
+     device route again in turns under VCFZ_COMPACT=host, device, device,
+     host with neither profiler nor clock around it, each checked, and
+     the ratio of the settings' mean walls per version; then a CLI compress-z (VCFZ_PACK=device) / decompress-z
+     / query-z round trip, and a v8 compress-z / decompress-z round trip
+     both under VCFZ_PACK=device
   4. each path's kernels' launch counts from its own run (phase 3's
      routes, phase 3b's codec and dry run, phase 3c's .vcfz path) above zero
   5. each kernel's time and its plain version's (CUDA events, median,
@@ -56,7 +67,9 @@ then runs, in order, failing (non-zero exit) at the first phase that fails:
      their earlier tile designs C4 (16 cells), C5, C6 and C7 and beside a
      device copy of their input plane, with their registers, local memory
      and resident blocks; H1 on the cohort's v1 decode dispatch; and the
-     end-to-end seconds of the routes
+     end-to-end seconds of the routes; S1 on the cohort's masked v1 decode
+     plane beside its plain version and the JAX package's formulation, a
+     stable torch.sort and a gather (library_ms)
   6. where the time goes, per route: host-clock seconds per layer from
      phase 3's median run, and device busy time from torch.profiler events
      on the CUDA device only (with the batches overlapped, a device
@@ -108,6 +121,7 @@ from vcfc_tpu_torch.format.vcfz_device import DECODE_VERSIONS, DECODES, DEVICE_V
 from vcfc_tpu_torch.host import fast, native
 from vcfc_tpu_torch.host.parse import parse_vcf_bytes
 from vcfc_tpu_torch.ops._build import build
+from vcfc_tpu_torch.ops.cuda_compact import LAUNCHES as COMPACT_LAUNCHES, cuda_sort_compact
 from vcfc_tpu_torch.ops.cuda_huffman import LAUNCHES as HUFFMAN_LAUNCHES, cuda_decode_bits
 from vcfc_tpu_torch.ops.cuda_rle import (
     LAUNCHES,
@@ -126,7 +140,7 @@ from vcfc_tpu_torch.ops.cuda_rle import (
     kernel_info,
 )
 from vcfc_tpu_torch.ops.histogram import ctx_flag_histogram, masked_code_histogram
-from vcfc_tpu_torch.ops import vcfz_device
+from vcfc_tpu_torch.ops import huffman_device, vcfz_device
 from vcfc_tpu_torch.ops.huffman_device import (
     _MAX_DISPATCH_BITS,
     _split_grid,
@@ -141,6 +155,7 @@ from vcfc_tpu_torch.ops.rle import (
     text_rle_decode_plain,
     text_rle_encode_plain,
 )
+from vcfc_tpu_torch.ops.vcfz_device import sort_compact_plain
 from vcfc_tpu_torch.parallel.dryrun import dryrun_multichip
 from vcfc_tpu_torch.parallel.mesh import make_data_mesh
 from vcfc_tpu_torch.parallel.shard import (
@@ -164,7 +179,8 @@ TIMED_SHAPE = (2048, 2560)  # one engine batch of the cohort
 SOURCE = "vcfc_tpu_torch/csrc/rle_kernels.cu"
 PROBE_SOURCE = "vcfc_tpu_torch/csrc/probe_kernels.cu"
 HUFFMAN_SOURCE = "vcfc_tpu_torch/csrc/huffman_kernels.cu"
-SOURCES = ("rle_kernels", "probe_kernels", "huffman_kernels")  # built in phase 1
+COMPACT_SOURCE = "vcfc_tpu_torch/csrc/compact_kernels.cu"
+SOURCES = ("rle_kernels", "probe_kernels", "huffman_kernels", "compact_kernels")  # phase 1
 KERNELS = {  # name -> (kernel, plain version, the TPU kernel it replaces)
     "rle_encode": (cuda_rle_encode, rle_encode_plain, "vcfc_tpu/ops/pallas_rle.py:181"),
     "rle_decode": (cuda_rle_decode, rle_decode_plain, "vcfc_tpu/ops/pallas_rle.py:234"),
@@ -202,10 +218,17 @@ DECODE_KERNELS = {
     "huffman_decode_bits": (cuda_decode_bits, decode_bits_plain,
                             "vcfc_tpu/ops/huffman_device.py:120"),
 }
+# S1, the .vcfz row compaction: name -> (kernel, plain version, the JAX
+# function it replaces: XLA's stable sort, not a Pallas kernel).  It takes
+# (values, mask) and times on the cohort's masked v1 decode plane.
+COMPACT_KERNELS = {
+    "sort_compact": (cuda_sort_compact, sort_compact_plain,
+                     "vcfc_tpu/ops/vcfz_device.py:356"),
+}
 # every kernel held to its plain version: name -> (kernel, plain version,
 # the TPU kernel it replaces)
 CHECKED = {**KERNELS, **{name: probe[:3] for name, probe in PROBES.items()}, **TEXT_PROBES,
-           **DECODE_KERNELS}
+           **DECODE_KERNELS, **COMPACT_KERNELS}
 # K1-K4 beside their earlier tile designs, timed in turns: kernel ->
 # (probe, its cells= or None)
 EARLIER_DESIGN = {"rle_encode": ("probe_blocked_encode", 16),
@@ -218,7 +241,9 @@ CELLS_PROBES = ("probe_scan_only", "probe_blocked_encode")
 # row (the int32 per-row outputs) over the H100's published 3.35 TB/s.
 # Every kernel is bound by bytes, so each row of the "kernels" line says
 # bound_by "bytes".  H1's cell is a word of a stream: the word read (4
-# bytes) and its 32 int32 plane entries written (128 bytes).
+# bytes) and its 32 int32 plane entries written (128 bytes).  S1's cell is
+# a cell of a row: its int32 value read and written and its mask byte read
+# (9 bytes), and a row's int32 count written (4 bytes).
 HBM_BYTES_PER_S = 3.35e12
 BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
     "rle_encode": (2, 4),
@@ -233,6 +258,7 @@ BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
     "probe_tile_text_encode": (5, 8),
     "probe_tile_text_decode": (6, 4),
     "huffman_decode_bits": (132, 0),
+    "sort_compact": (9, 4),
 }
 # Printed beside the bound by phases 5 and 7, not on the "kernels" line:
 # the plain-op line, the integer operations per cell of a kernel's plain
@@ -252,6 +278,8 @@ BOUND_BYTES = {  # name -> (bytes per cell, bytes per row)
 # and 1 on the length (61), pass C's 6 and the output's 3, 177 a bit, 5,664
 # a word, and the word's own 5 (widen, mask, shifted copy, shift, or):
 # 5,669.  Pass B's 77 a segment (under 2 a word at s2 = 2,048) are left out.
+# S1's plain version per cell: the mask cast, the cumsum, c - 1, count + i,
+# - c, the where and the scatter, 7 (the count's cast a row left out).
 INT32_OPS_PER_SM_PER_CLOCK = 64
 CLOCK_QUERY = ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]
 PLAIN_OPS = {  # name -> the plain version's operations per cell
@@ -267,8 +295,9 @@ PLAIN_OPS = {  # name -> the plain version's operations per cell
     "probe_tile_text_encode": 59,
     "probe_tile_text_decode": 37,
     "huffman_decode_bits": 5669,
+    "sort_compact": 7,
 }
-ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK", "VCFC_SHARDED", "VCFZ_PACK")
+ROUTE_ENV = ("VCFC_PARSE", "VCFC_UNPACK", "VCFC_SHARDED", "VCFZ_PACK", "VCFZ_COMPACT")
 # route -> its environment, its kernels, host-clock layers per engine call
 # (None: the call is the parse route's, which the route does not change).
 # A device layer's clock runs from its first staged batch to its last
@@ -319,17 +348,38 @@ SHARDED_KERNELS = ("rle_encode", "rle_decode", "text_encode", "text_decode")
 # POS of the middle line of the CLI prefix, to VCFZ_REGION_SPAN bases on.
 VCFZ_VERSIONS = DEVICE_VERSIONS
 VCFZ_DECODE_VERSIONS = DECODE_VERSIONS
-VCFZ_KERNELS = ("rle_encode", "rle_decode", "huffman_decode_bits")
+VCFZ_KERNELS = ("rle_encode", "rle_decode", "huffman_decode_bits", "sort_compact")
 HUFFMAN_PASSES = ("huffman_segment_maps", "huffman_chain", "huffman_emit")
+COMPACT_PASSES = ("compact_count", "compact_scan", "compact_write")  # S1's kernels
+# The on-device compaction: the device routes run profiled once under each
+# VCFZ_COMPACT setting (the card's default first); with --compact-ab, its
+# A/B runs them again in these turns, a version at a time, unprofiled.
+COMPACT_SETTINGS = ("device", "host")
+COMPACT_TURNS = ("host", "device", "device", "host")
+COMPACT_AB_FLAG = "--compact-ab"
 # host-clock layers of decompress_vcfz: the host route's (the native Huffman
-# decode runs inside the line assembly) and the device route's
+# decode runs inside the line assembly) and the device route's, whose
+# entropy decode is split into the steps of each dispatch
+# (ops.huffman_device.device_unpack_symbols); the steps of SYNCED_LAYERS
+# leave work queued on the card, so their clock stops only once the card is
+# done (the steps run one after another, so this moves the waits, not the
+# work).  The compaction runs under VCFZ_COMPACT=device only.
 HOST_DECODE_LAYERS = {"line assembly": (vcfz.VcfzReader, "block_lines_vcfc"),
                       "engine.decompress": (engine, "decompress")}
-DEVICE_DECODE_LAYERS = {"entropy decode": (vcfz_route, "device_unpack_symbols"),
+DEVICE_DECODE_LAYERS = {"words build": (huffman_device, "stream_words"),
+                        "H2D": (huffman_device, "_upload"),
+                        "H1 and its wait": (huffman_device, "decode_bits"),
+                        "compaction and counts": (huffman_device, "_compact_rows"),
+                        "D2H": (huffman_device, "_download"),
+                        "gate and map": (huffman_device, "_rows_to_symbols"),
                         "context merge": (vcfz_route, "_merge_ctx_streams"),
                         **HOST_DECODE_LAYERS}
+SYNCED_LAYERS = ("H2D", "H1 and its wait", "compaction and counts")
+ENTROPY_STEPS = ("words build", "H2D", "H1 and its wait", "compaction and counts", "D2H",
+                 "gate and map")
 VCFZ_CLI_VERSION = 8  # the version of the CLI's device decode round trip
-VCFZ_OPS = ("sympos_v3", "ctx_plane", "pack_cells")
+VCFZ_OPS = ("sympos_v3", "ctx_plane", "pack_cells", "pack_cells_compact", "sort_compact",
+            "esc_plane_device")
 VCFZ_REGION_SPAN = 20_000
 TOP_DEVICE_OPS = 5
 
@@ -490,6 +540,50 @@ def cohort_dispatch(v1: bytes):
     return stream_words(payloads[:group], s1, s2), limits, adjust, s1, s2, len(payloads)
 
 
+def dispatch_bits(v1: bytes, streams: int) -> list[int]:
+    """The bit lengths of the first ``streams`` block payloads of a v1
+    container: the lengths the decode's compaction masks each row of the
+    plane to."""
+    reader = vcfz.VcfzReader.parse(v1)
+    return [int(b["payload_len"]) * 8 for b in reader.blocks[:streams]]
+
+
+def masked_plane(dispatch, nbits):
+    """H1's plane of the dispatch on the card and its mask, as the decode's
+    compaction gives them to S1: the start bits within each stream's bits."""
+    words, limits, adjust, s1, s2, _blocks = dispatch
+    plane = cuda_decode_bits(torch.from_numpy(words).cuda(), limits, adjust, s1=s1, s2=s2)
+    cells = torch.arange(plane.shape[1], device=plane.device)[None, :]
+    return plane, (plane != 0) & (cells < torch.tensor(nbits, device=plane.device)[:, None])
+
+
+def compact_cases(rng):
+    """(name, values, mask) for S1: int32 values over the whole range, masks
+    at densities 0 to 1 with an empty row, a full row and a row masked on
+    its last cell, at widths of one chunk, none and many."""
+    cases = []
+    for B, n in ((7, 4096), (5, 9000), (3, 140_000), (4, 1), (300, 257), (25, 655_361)):
+        for density in (0.0, 0.18, 0.5, 1.0):
+            values = rng.integers(-(1 << 31), 1 << 31, (B, n), dtype=np.int64).astype(np.int32)
+            mask = rng.random((B, n)) < density
+            mask[0] = False
+            mask[1 % B] = True
+            mask[2 % B, -1] = True
+            cases.append((f"{B}x{n} density {density}", values, mask))
+    return cases
+
+
+def sort_compact_library(values, mask):
+    """The JAX package's formulation of sort_compact in PyTorch calls, the
+    yardstick of S1's library_ms (the port never calls it): a stable sort
+    of each row keyed by the cell index where the mask is set and INT32_MAX
+    elsewhere, a gather of the values by the sort's order, and the counts."""
+    cells = torch.arange(values.shape[1], dtype=torch.int32, device=values.device)
+    key = torch.where(mask, cells[None, :], torch.iinfo(torch.int32).max)
+    order = torch.sort(key, dim=1, stable=True).indices
+    return torch.gather(values, 1, order), mask.sum(dim=1, dtype=torch.int32)
+
+
 def _compare(got, want):
     torch.cuda.synchronize()
     mismatches = sum(int((a != b).sum()) for a, b in zip(got, want))
@@ -497,7 +591,7 @@ def _compare(got, want):
     return mismatches, err
 
 
-def phase2_kernels(rng, vcf, dispatch):
+def phase2_kernels(rng, vcf, dispatch, nbits):
     stats = {name: {"cases": 0, "mismatches": 0, "max_abs_err": 0}
              for name in CHECKED}
 
@@ -565,6 +659,21 @@ def phase2_kernels(rng, vcf, dispatch):
         if mism:
             print(f"phase 2: huffman_decode_bits {case}: {mism} mismatching elements")
         del x
+    plane, mask = masked_plane(dispatch, nbits)
+    cases = [(name, torch.from_numpy(v).cuda(), torch.from_numpy(m).cuda())
+             for name, v, m in compact_cases(rng)]
+    cases.append((f"cohort v1 dispatch plane {plane.shape[0]}x{plane.shape[1]}, masked to "
+                  "each stream's bits", plane, mask))
+    kernel, plain = CHECKED["sort_compact"][:2]
+    for case, v, m in cases:
+        mism, err = _compare(kernel(v, m), plain(v, m))
+        st = stats["sort_compact"]
+        st["cases"] += 1
+        st["mismatches"] += mism
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        if mism:
+            print(f"phase 2: sort_compact {case}: {mism} mismatching elements")
+    del cases, plane, mask, v, m
     for name, st in stats.items():
         print(f"phase 2: {name}: {st['cases']} cases, {st['mismatches']} mismatching elements, "
               f"max abs error {st['max_abs_err']}")
@@ -626,9 +735,11 @@ def batch_shapes(mod, attr):
 
 
 @contextlib.contextmanager
-def layer_clock(layers):
+def layer_clock(layers, synced=()):
     """Time, on the host clock, each layer the engine calls while inside:
-    yields {layer: seconds}, summed over the layer's calls."""
+    yields {layer: seconds}, summed over the layer's calls.  The clock of a
+    layer in ``synced`` stops once the card has done what the layer queued
+    (where CUDA is in use)."""
     seconds = dict.fromkeys(layers, 0.0)
 
     def timed(name, fn):
@@ -637,6 +748,8 @@ def layer_clock(layers):
             try:
                 return fn(*args, **kwargs)
             finally:
+                if name in synced and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
                 seconds[name] += time.perf_counter() - t
         return run
 
@@ -903,63 +1016,201 @@ def _seconds(layers) -> str:
     return ", ".join(f"{layer} {s:.3f} s" for layer, s in layers.items())
 
 
-def _device_decode(host: bytes, version: int, vcf: bytes, decompress_s: float) -> dict:
-    """decompress_vcfz(route="device") of one container under
-    torch.profiler: the input restored and DECODES[version] moved by one
-    (by none for the versions the route leaves to the host decode)."""
-    before = HUFFMAN_LAUNCHES["huffman_decode_bits"]
+def _compact_device_ms(by_name) -> float:
+    """S1's device ms in a profile (its three kernels, by name)."""
+    return sum(ms for name, ms in by_name.items() if any(p in name for p in COMPACT_PASSES))
+
+
+def _d2h_text(copies) -> str:
+    nbytes, ms = d2h(copies)
+    shown = "bytes not measured" if nbytes is None else f"{nbytes:,} bytes"
+    return f"D2H {shown} in {ms:.3f} ms"
+
+
+def _device_encode(vcfc: bytes, version: int, host: bytes, setting: str, labels) -> dict:
+    """vcfz_from_vcfc(route="device") under VCFZ_COMPACT=setting and
+    torch.profiler: the host writer's bytes, ENCODES[version] moved by one,
+    S1 launched under device and not under host."""
+    out, copies = [], {}
+    encodes, compacts = ENCODES[version], COMPACT_LAUNCHES["sort_compact"]
+    with route_env({"VCFZ_COMPACT": setting}), annotated(vcfz_device, labels):
+        wall, busy, kinds, by_name, op_ms = _device_busy(
+            lambda: out.append(vcfz.vcfz_from_vcfc(vcfc, version=version, route="device")),
+            labels=tuple(labels.values()), copies=copies)
+    what = f"phase 3c: v{version}: device route, VCFZ_COMPACT={setting}"
+    if out[0] != host:
+        raise SystemExit(f"{what}: the bytes differ from the host writer's")
+    if ENCODES[version] != encodes + 1:
+        raise SystemExit(f"{what}: the route's counter did not move: it fell back to the host "
+                         "writer")
+    compacts = COMPACT_LAUNCHES["sort_compact"] - compacts
+    if (compacts > 0) != (setting == "device"):
+        raise SystemExit(f"{what}: sort_compact launched {compacts} times")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
+    ops = {name: op_ms[label] for name, label in labels.items()}
+    print(f"{what}: {wall / 1e3:.3f} s (profiled), bytes equal, counter +1, sort_compact "
+          f"{compacts} launches; device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f} ("
+          + ", ".join(f"{kind} {ms:.3f}" for kind, ms in kinds.items())
+          + f" ms); {_d2h_text(copies)}; copies: {_copies(copies)}; ops "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in ops.items())
+          + " ms; top device ops: " + "; ".join(f"{name[:80]} {ms:.3f} ms" for name, ms in top))
+    return {"wall_s": wall / 1e3, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kinds_ms": kinds, "d2h_bytes": d2h(copies)[0], "d2h_ms": d2h(copies)[1],
+            "copies": copies, "ops_device_ms": ops, "top_device_ops_ms": dict(top),
+            "sort_compact_launches": compacts}
+
+
+def _host_decode(host: bytes, version: int, vcf: bytes) -> dict:
+    """decompress_vcfz(route="device") of a context-coded container (v2,
+    v3): the host decode, the input restored, no device decode counted."""
+    before = (HUFFMAN_LAUNCHES["huffman_decode_bits"], COMPACT_LAUNCHES["sort_compact"])
     decoded = dict(DECODES)
-    if version not in VCFZ_DECODE_VERSIONS:
-        t = time.perf_counter()
-        back = vcfz.decompress_vcfz(host, route="device")
-        wall_s = time.perf_counter() - t
-        if back != vcf:
-            raise SystemExit(f"phase 3c: v{version}: decompress_vcfz(route='device') does not "
-                             "restore the input")
-        if DECODES != decoded or HUFFMAN_LAUNCHES["huffman_decode_bits"] != before:
-            raise SystemExit(f"phase 3c: v{version}: the device decode ran on a context-coded "
-                             f"container: {DECODES}")
-        print(f"phase 3c: v{version}: decompress_vcfz(route='device') {wall_s:.3f} s takes the "
-              f"host decode (a context-coded container), restores the input; the decode "
-              f"counter did not move {dict(DECODES)}")
-        return {"device_decode": "host", "device_decode_route_s": wall_s}
-    back = []
-    with layer_clock(DEVICE_DECODE_LAYERS) as layers:
-        wall, busy, kinds, by_name, _ = _device_busy(
-            lambda: back.append(vcfz.decompress_vcfz(host, route="device")))
-    if back[0] != vcf:
+    t = time.perf_counter()
+    back = vcfz.decompress_vcfz(host, route="device")
+    wall_s = time.perf_counter() - t
+    if back != vcf:
         raise SystemExit(f"phase 3c: v{version}: decompress_vcfz(route='device') does not "
                          "restore the input")
-    if DECODES[version] != decoded[version] + 1:
-        raise SystemExit(f"phase 3c: v{version}: the device decode's counter reads "
-                         f"{DECODES[version]}, not {decoded[version] + 1}")
-    launches = HUFFMAN_LAUNCHES["huffman_decode_bits"] - before
+    if DECODES != decoded or (HUFFMAN_LAUNCHES["huffman_decode_bits"],
+                              COMPACT_LAUNCHES["sort_compact"]) != before:
+        raise SystemExit(f"phase 3c: v{version}: the device decode ran on a context-coded "
+                         f"container: {DECODES}")
+    print(f"phase 3c: v{version}: decompress_vcfz(route='device') {wall_s:.3f} s takes the "
+          f"host decode (a context-coded container), restores the input; the decode "
+          f"counter did not move {dict(DECODES)}")
+    return {"device_decode": "host", "device_decode_route_s": wall_s}
+
+
+def _device_decode(host: bytes, version: int, vcf: bytes, setting: str) -> dict:
+    """decompress_vcfz(route="device") of one container under
+    VCFZ_COMPACT=setting and torch.profiler: the input restored,
+    DECODES[version] moved by one, H1 launched, S1 launched under device
+    and not under host; the host clock of its layers and of the entropy
+    decode's steps."""
+    before = (HUFFMAN_LAUNCHES["huffman_decode_bits"], COMPACT_LAUNCHES["sort_compact"])
+    decoded = DECODES[version]
+    back, copies = [], {}
+    with route_env({"VCFZ_COMPACT": setting}), \
+            layer_clock(DEVICE_DECODE_LAYERS, SYNCED_LAYERS) as layers:
+        wall, busy, kinds, by_name, _ = _device_busy(
+            lambda: back.append(vcfz.decompress_vcfz(host, route="device")), copies=copies)
+    what = f"phase 3c: v{version}: decompress_vcfz(route='device'), VCFZ_COMPACT={setting}"
+    if back[0] != vcf:
+        raise SystemExit(f"{what}: does not restore the input")
+    if DECODES[version] != decoded + 1:
+        raise SystemExit(f"{what}: the decode's counter reads {DECODES[version]}, not "
+                         f"{decoded + 1}")
+    launches = HUFFMAN_LAUNCHES["huffman_decode_bits"] - before[0]
+    compacts = COMPACT_LAUNCHES["sort_compact"] - before[1]
+    if not launches or (compacts > 0) != (setting == "device"):
+        raise SystemExit(f"{what}: huffman_decode_bits launched {launches} times, sort_compact "
+                         f"{compacts}")
     passes = _huffman_device_ms(by_name)
-    kernel_ms = sum(passes.values())
-    print(f"phase 3c: v{version}: decompress_vcfz(route='device') {wall / 1e3:.3f} s (profiled) "
-          f"against the host route's {decompress_s:.3f} s, restores the input, counter 1; "
-          f"host clock: {_seconds(layers)}; device busy {busy:.3f} ms, idle share "
-          f"{1 - busy / wall:.4f} ("
+    kernel_ms, compact_ms = sum(passes.values()), _compact_device_ms(by_name)
+    entropy_s = sum(layers[step] for step in ENTROPY_STEPS)
+    print(f"{what}: {wall / 1e3:.3f} s (profiled, layers clocked), restores the input, counter "
+          f"+1; host clock: "
+          f"entropy decode {entropy_s:.3f} s ({_seconds({k: layers[k] for k in ENTROPY_STEPS})}), "
+          + _seconds({k: v for k, v in layers.items() if k not in ENTROPY_STEPS})
+          + f"; device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f} ("
           + ", ".join(f"{kind} {ms:.3f}" for kind, ms in kinds.items())
-          + f" ms); huffman_decode_bits {launches} launches, {kernel_ms:.3f} ms on the device ("
-          + ", ".join(f"{p} {ms:.3f}" for p, ms in passes.items()) + " ms)")
-    return {"device_decode_route_s": wall / 1e3, "device_decode_busy_ms": busy,
-            "device_decode_idle_share": 1 - busy / wall, "device_decode_kinds_ms": kinds,
-            "device_decode_layers_s": layers, "huffman_decode_bits_ms": kernel_ms,
-            "huffman_decode_bits_passes_ms": passes, "huffman_decode_bits_launches": launches}
+          + f" ms); {_d2h_text(copies)}; copies: {_copies(copies)}; huffman_decode_bits "
+          f"{launches} launches, {kernel_ms:.3f} ms on the device ("
+          + ", ".join(f"{p} {ms:.3f}" for p, ms in passes.items())
+          + f" ms); sort_compact {compacts} launches, {compact_ms:.3f} ms on the device")
+    return {"wall_s": wall / 1e3, "busy_ms": busy, "idle_share": 1 - busy / wall,
+            "kinds_ms": kinds, "d2h_bytes": d2h(copies)[0], "d2h_ms": d2h(copies)[1],
+            "copies": copies, "layers_s": layers, "entropy_decode_s": entropy_s,
+            "huffman_decode_bits_ms": kernel_ms, "huffman_decode_bits_passes_ms": passes,
+            "huffman_decode_bits_launches": launches, "sort_compact_ms": compact_ms,
+            "sort_compact_launches": compacts}
 
 
-def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
+def decode_d2h_model(z: bytes) -> tuple:
+    """The entropy decode's D2H bytes for container z on each branch, from
+    its streams' bit lengths and symbol counts, dispatch by dispatch as
+    device_unpack_symbols cuts them: (dense: B x s1*s2 x 4 a dispatch,
+    compacted: B x kb x 4 + 4 B a dispatch, kb bucketed from the largest
+    symbol count; the true kb takes the largest count of start bits, which
+    may pass it by the few spurious starts of a stream's last byte)."""
+    reader = vcfz.VcfzReader.parse(z)
+    blocks = reader.blocks
+    if reader.version == 8:
+        calls = [([int(b["ctx_plen"][c]) for b in blocks], [int(b["ctx_nsym"][c]) for b in blocks])
+                 for c in range(len(reader.books))]
+    else:
+        calls = [([int(b["payload_len"]) for b in blocks], [int(b["n_symbols"]) for b in blocks])]
+    if reader.version >= 3:
+        ends = [min((i + 1) * reader.block_lines, reader.n_lines) for i in range(len(blocks))]
+        calls.append(([int(b["req_payload_len"]) for b in blocks],
+                      [int(reader.req_starts[hi - 1]) + int(reader.req_lens[hi - 1])
+                       - int(reader.req_starts[i * reader.block_lines])
+                       for i, hi in enumerate(ends)]))
+    dense = compacted = 0
+    for lens, n_syms in calls:
+        s1, s2 = _split_grid(max(lens) * 8)
+        group = max(_MAX_DISPATCH_BITS // (s1 * s2), 1)
+        for g0 in range(0, len(lens), group):
+            B = len(lens[g0 : g0 + group])
+            dense += B * s1 * s2 * 4
+            compacted += B * vcfz_device._bucket(max(n_syms[g0 : g0 + group]), s1 * s2) * 4 + 4 * B
+    return dense, compacted
+
+
+def _unprofiled_wall(run, check, setting: str) -> float:
+    """The wall in s of run() under VCFZ_COMPACT=setting, with neither
+    profiler nor layer clock around it, the card idle at its start and its
+    end; check(result) raises where the result is wrong, and S1 must
+    launch under device only."""
+    compacts = COMPACT_LAUNCHES["sort_compact"]
+    with route_env({"VCFZ_COMPACT": setting}):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    check(out)
+    if (COMPACT_LAUNCHES["sort_compact"] > compacts) != (setting == "device"):
+        raise SystemExit(f"phase 3c: A/B under VCFZ_COMPACT={setting}: sort_compact launched "
+                         f"{COMPACT_LAUNCHES['sort_compact'] - compacts} times")
+    return wall
+
+
+def _ab(run, check) -> dict:
+    """The A/B of one route: {setting: [walls in s]} over COMPACT_TURNS,
+    each from _unprofiled_wall, and the ratio of the settings' mean walls
+    (device over host)."""
+    walls = {setting: [] for setting in COMPACT_SETTINGS}
+    for setting in COMPACT_TURNS:
+        walls[setting].append(_unprofiled_wall(run, check, setting))
+    return {"walls_s": walls,
+            "device_over_host": statistics.mean(walls["device"]) / statistics.mean(walls["host"])}
+
+
+def _ab_text(ab) -> str:
+    return (f"device {', '.join(f'{w:.3f}' for w in ab['walls_s']['device'])} s against host "
+            f"{', '.join(f'{w:.3f}' for w in ab['walls_s']['host'])} s (ratio of the means "
+            f"{ab['device_over_host']:.3f})")
+
+
+def _check_equal(want: bytes, what: str):
+    def check(got):
+        if got != want:
+            raise SystemExit(f"phase 3c: {what}: A/B run differs")
+    return check
+
+
+def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes, compact_ab: bool = False):
     """The .vcfz path on the cohort, the counts set to 0 just before and
-    read just after; then the CLI round trips.  Returns (the counts,
-    {version: its numbers})."""
+    read just after (with compact_ab, the A/B's runs in it); then the CLI
+    round trips.  Returns (the counts, {version: its numbers})."""
     card = subprocess.run(CARD_QUERY, check=True, capture_output=True, text=True).stdout.strip()
     region = vcfz_region(prefix)
     want_region = full_scan(vcf, region)
     region_lines = want_region.count(b"\n")
     labels = {name: f"ops.vcfz_device.{name}" for name in VCFZ_OPS}
     start = time.perf_counter()
-    for counts in (LAUNCHES, HUFFMAN_LAUNCHES, ENCODES, DECODES):
+    for counts in (LAUNCHES, HUFFMAN_LAUNCHES, COMPACT_LAUNCHES, ENCODES, DECODES):
         for name in counts:
             counts[name] = 0
     t = time.perf_counter()
@@ -968,24 +1219,18 @@ def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
     if vcfc != reference:
         raise SystemExit("phase 3c: engine.compress bytes differ from the native host executor's")
     print(f"phase 3c: {card}; engine.compress {compress_s:.3f} s -> {len(vcfc):,} bytes of "
-          f".vcfc; query-z region {region} ({region_lines} lines in a full scan)")
+          f".vcfc; query-z region {region} ({region_lines} lines in a full scan); the device "
+          f"routes profiled under VCFZ_COMPACT={', '.join(COMPACT_SETTINGS)}"
+          + (f", then unprofiled in turns under {', '.join(COMPACT_TURNS)}" if compact_ab else ""))
+    runs_a_version = len(COMPACT_SETTINGS) + (len(COMPACT_TURNS) if compact_ab else 0)
     results = {}
     for version in VCFZ_VERSIONS:
         t = time.perf_counter()
         host = vcfz.vcfz_from_vcfc(vcfc, version=version)
         host_s = time.perf_counter() - t
-        device_out = []
-        with annotated(vcfz_device, labels):
-            wall, busy, kinds, by_name, op_ms = _device_busy(
-                lambda: device_out.append(vcfz.vcfz_from_vcfc(vcfc, version=version,
-                                                               route="device")),
-                labels=tuple(labels.values()))
-        if device_out[0] != host:
-            raise SystemExit(f"phase 3c: v{version}: the device route's bytes differ from the "
-                             "host writer's")
-        if ENCODES[version] != 1:
-            raise SystemExit(f"phase 3c: v{version}: the device route's counter reads "
-                             f"{ENCODES[version]}, not 1: the route fell back to the host writer")
+        print(f"phase 3c: v{version}: {len(host):,} bytes; host writer {host_s:.3f} s")
+        encode = {setting: _device_encode(vcfc, version, host, setting, labels)
+                  for setting in COMPACT_SETTINGS}
         with layer_clock(HOST_DECODE_LAYERS) as decompress_layers:
             t = time.perf_counter()
             back = vcfz.decompress_vcfz(host)
@@ -999,26 +1244,45 @@ def phase3c_vcfz(vcf: bytes, reference: bytes, prefix: bytes):
         if got_region != want_region:
             raise SystemExit(f"phase 3c: v{version}: query_vcfz {region} differs from the full "
                              "scan")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_DEVICE_OPS]
-        ops = {name: op_ms[label] for name, label in labels.items()}
+        print(f"phase 3c: v{version}: decompress_vcfz {decompress_s:.3f} s "
+              f"({_seconds(decompress_layers)}) restores the input; query_vcfz {query_s:.3f} s "
+              "equals the full scan")
         results[version] = {
-            "vcfz_bytes": len(host), "host_writer_s": host_s, "device_route_s": wall / 1e3,
-            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall, "kinds_ms": kinds,
-            "ops_device_ms": ops, "top_device_ops_ms": dict(top),
+            "vcfz_bytes": len(host), "host_writer_s": host_s, "device_encode": encode,
             "decompress_vcfz_s": decompress_s, "decompress_vcfz_layers_s": decompress_layers,
             "query_vcfz_s": query_s}
-        print(f"phase 3c: v{version}: {len(host):,} bytes; host writer {host_s:.3f} s, device "
-              f"route {wall / 1e3:.3f} s (profiled), bytes equal, counter 1; device busy "
-              f"{busy:.3f} ms, idle share {1 - busy / wall:.4f} ("
-              + ", ".join(f"{kind} {ms:.3f}" for kind, ms in kinds.items())
-              + " ms); ops " + ", ".join(f"{name} {ms:.3f}" for name, ms in ops.items())
-              + " ms; decompress_vcfz " + f"{decompress_s:.3f} s ({_seconds(decompress_layers)}) "
-              + "restores the input; query_vcfz "
-              + f"{query_s:.3f} s equals the full scan; top device ops: "
-              + "; ".join(f"{name[:80]} {ms:.3f} ms" for name, ms in top))
-        results[version].update(_device_decode(host, version, vcf, decompress_s))
-        del host, device_out
-    counts = {**LAUNCHES, **HUFFMAN_LAUNCHES}
+        if compact_ab:
+            results[version]["encode_ab"] = _ab(
+                lambda: vcfz.vcfz_from_vcfc(vcfc, version=version, route="device"),
+                _check_equal(host, f"v{version} encode"))
+            print(f"phase 3c: v{version}: A/B of VCFZ_COMPACT, the encode "
+                  f"{_ab_text(results[version]['encode_ab'])} against the host writer's "
+                  f"{host_s:.3f} s")
+        if version in VCFZ_DECODE_VERSIONS:
+            dense, compacted = decode_d2h_model(host)
+            print(f"phase 3c: v{version}: the entropy decode's D2H by its streams' bits and "
+                  f"symbols: dense {dense:,} bytes, compacted {compacted:,} bytes "
+                  f"({compacted / dense:.4f}); engine.decompress after it brings back the same "
+                  "on both")
+            decode = {setting: _device_decode(host, version, vcf, setting)
+                      for setting in COMPACT_SETTINGS}
+            results[version].update(device_decode=decode, entropy_d2h_model_bytes={
+                "host": dense, "device": compacted})
+            if compact_ab:
+                results[version]["decode_ab"] = _ab(
+                    lambda: vcfz.decompress_vcfz(host, route="device"),
+                    _check_equal(vcf, f"v{version} decode"))
+                print(f"phase 3c: v{version}: A/B of VCFZ_COMPACT, the decode "
+                      f"{_ab_text(results[version]['decode_ab'])} against the host route's "
+                      f"{decompress_s:.3f} s")
+        else:
+            results[version].update(_host_decode(host, version, vcf))
+        del host
+    counts = {**LAUNCHES, **HUFFMAN_LAUNCHES, **COMPACT_LAUNCHES}
+    if any(ENCODES[v] != runs_a_version for v in VCFZ_VERSIONS) or any(
+            DECODES[v] != runs_a_version for v in VCFZ_DECODE_VERSIONS):
+        raise SystemExit(f"phase 3c: device encodes {dict(ENCODES)}, decodes {dict(DECODES)}: "
+                         f"not {runs_a_version} a version")
     print(f"phase 3c: launches over the .vcfz path {counts}; device encodes {dict(ENCODES)}; "
           f"device decodes {dict(DECODES)}")
     container, back, queried, container2, back2 = _cli_vcfz_round_trip(prefix, region)
@@ -1088,6 +1352,35 @@ def phase5_huffman(dispatch, stats, launches, int_rate):
     return row
 
 
+def phase5_compact(dispatch, nbits, stats, launches, int_rate):
+    """S1 on the cohort's masked v1 decode plane, beside its plain version
+    and the JAX package's formulation (a stable sort and a gather, timed as
+    library_ms); returns its row of the "kernels" line."""
+    plane, mask = masked_plane(dispatch, nbits)
+    B, n = plane.shape
+    kernel = COMPACT_KERNELS["sort_compact"][0]
+    got = kernel(plane, mask)
+    library = sort_compact_library(plane, mask)
+    if not (torch.equal(got[0], library[0]) and torch.equal(got[1], library[1])):
+        raise SystemExit("phase 5: sort_compact and its library formulation disagree")
+    del got, library
+    xs = [(plane, mask)]  # 335 MB a launch: past the L2 on every launch
+    ms = median_ms(lambda pm, _n: kernel(*pm), xs, 0)
+    plain_ms = median_ms(lambda pm, _n: sort_compact_plain(*pm), xs, 0)
+    library_ms = median_ms(lambda pm, _n: sort_compact_library(*pm), xs, 0, trials=5, launches=5)
+    row = _kernel_row("sort_compact", COMPACT_SOURCE, COMPACT_KERNELS["sort_compact"][2],
+                      launches["sort_compact"], stats, (B, n), ms, plain_ms)
+    row["library_ms"] = library_ms
+    masked = int(mask.sum())
+    print(f"phase 5: sort_compact on the cohort's v1 decode plane ({B} x {n} cells, {masked:,} "
+          f"masked, {masked / (B * n):.4f} of them): kernel {ms:.5f} ms (median of {TRIALS} "
+          f"trials of {LAUNCHES_PER_TRIAL} launches), plain {plain_ms:.5f} ms, library (stable "
+          f"torch.sort and a gather) {library_ms:.5f} ms (median of 5 trials of 5 calls), bound "
+          f"{row['bound_ms']:.5f} ms by bytes ({row['bound_ms'] / ms:.1%} of the kernel's time), "
+          f"plain-op line {plain_ops_ms('sort_compact', B, n, int_rate):.5f} ms")
+    return row
+
+
 def phase5_times(vcf, stats, launches, int_rate):
     L, W = TIMED_SHAPE
     codes = torch.from_numpy(parse_vcf_bytes(vcf).codes[:L]).cuda()
@@ -1145,14 +1438,46 @@ def phase5_times(vcf, stats, launches, int_rate):
     return rows
 
 
-def _device_busy(fn, labels=()):
+def trace_copies(trace: dict) -> dict:
+    """{copy kind: {"count", "bytes", "ms"}} of the memcpy events of a
+    profiler's chrome trace, by their name (e.g. "Memcpy DtoH (Device ->
+    Pinned)"); "bytes" is None where the trace carries no byte count."""
+    copies = {}
+    for ev in trace.get("traceEvents", []):
+        name = ev.get("name", "")
+        if ev.get("cat") != "gpu_memcpy" and not name.startswith("Memcpy"):
+            continue
+        c = copies.setdefault(name, {"count": 0, "bytes": 0, "ms": 0.0})
+        c["count"] += 1
+        c["ms"] += ev.get("dur", 0) / 1e3
+        nbytes = ev.get("args", {}).get("bytes")
+        c["bytes"] = None if nbytes is None or c["bytes"] is None else c["bytes"] + int(nbytes)
+    return copies
+
+
+def d2h(copies: dict) -> tuple:
+    """(bytes, ms) of the device-to-host copies of trace_copies' result;
+    bytes None where the trace carries none."""
+    kinds = [c for name, c in copies.items() if "DtoH" in name]
+    nbytes = [c["bytes"] for c in kinds]
+    return (None if None in nbytes else sum(nbytes)), sum(c["ms"] for c in kinds)
+
+
+def _copies(copies: dict) -> str:
+    return "; ".join(f"{name} x{c['count']} "
+                     f"{'bytes not measured' if c['bytes'] is None else format(c['bytes'], ',')}"
+                     f" {c['ms']:.3f} ms" for name, c in sorted(copies.items()))
+
+
+def _device_busy(fn, labels=(), copies=None):
     """Run fn under torch.profiler; returns (wall ms, busy ms, ms by kind,
     ms by name, {label: ms}) from the events on the CUDA device only
     (kernels and memcpys): busy is the union of their intervals, host
     runtime and aten rows never count.  Each of ``labels`` is a
     record_function inside fn: its device time is that of the device events
     linked to the ops its calls ran (the profiler also links the label's own
-    span on the device to it, which neither it nor busy counts)."""
+    span on the device to it, which neither it nor busy counts).  A dict
+    given as ``copies`` is filled with trace_copies() of the run's trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1161,6 +1486,12 @@ def _device_busy(fn, labels=()):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    if copies is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                copies.update(trace_copies(json.load(f)))
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in labels]
     if not events:
         raise SystemExit("phase 6: the profiler recorded no CUDA-device events")
@@ -1305,25 +1636,33 @@ def phase7_ablation(stats, int_rate):
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA device", file=sys.stderr)
         return 1
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], [COMPACT_AB_FLAG]):
+        print(f"usage: python3 chip_smoke.py [{COMPACT_AB_FLAG}]", file=sys.stderr)
+        return 2
     wall = time.perf_counter()
     vcf = phase1_build()
     reference = host_reference(vcf)
     t = time.perf_counter()
-    dispatch = cohort_dispatch(vcfz.vcfz_from_vcfc(reference, version=1))
+    v1 = vcfz.vcfz_from_vcfc(reference, version=1)
+    dispatch = cohort_dispatch(v1)
+    nbits = dispatch_bits(v1, dispatch[0].shape[0])
+    del v1
     print(f"phase 1: the cohort's v1 .vcfz by the host writer and its first decode dispatch "
           f"({dispatch[0].shape[0]} streams x {dispatch[0].shape[1]} words) in "
           f"{time.perf_counter() - t:.1f} s")
     rng = np.random.default_rng(SEED)
-    stats = phase2_kernels(rng, vcf, dispatch)
+    stats = phase2_kernels(rng, vcf, dispatch, nbits)
     prefix = cli_prefix(vcf)
     runs = phase3_main_path(vcf, reference, prefix)
     sharded_counts, sharded_times = phase3b_sharded(vcf, reference, prefix,
                                                     runs["parse route"]["vcfc"])
-    vcfz_counts, vcfz_results = phase3c_vcfz(vcf, reference, prefix)
+    vcfz_counts, vcfz_results = phase3c_vcfz(vcf, reference, prefix,
+                                             compact_ab=argv == [COMPACT_AB_FLAG])
 
     # path -> (its counts, the kernels it must launch)
     paths = {route: (runs[route]["counts"], kernels)
@@ -1343,6 +1682,7 @@ def main() -> int:
     int_rate = int32_ops_per_s()
     kernel_rows = phase5_times(vcf, stats, launches, int_rate)
     kernel_rows.append(phase5_huffman(dispatch, stats, launches, int_rate))
+    kernel_rows.append(phase5_compact(dispatch, nbits, stats, launches, int_rate))
     del dispatch
     for row in kernel_rows:
         row["launches_by_path"] = launches_by_path.get(row["name"], {})

@@ -5,12 +5,14 @@ plain-op line and its "kernels" rows can be held to numbers worked out by
 hand; its main() refuses to run without a CUDA device.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from vcfc_tpu_torch.ops import cuda_huffman, cuda_rle
+from vcfc_tpu_torch.ops import cuda_compact, cuda_huffman, cuda_rle
 
 INT32_RATE = 64 * 132 * 1980e6  # 64 lanes per SM per clock x 132 SMs x 1,980 MHz
 
@@ -29,6 +31,9 @@ INT32_RATE = 64 * 132 * 1980e6  # 64 lanes per SM per clock x 132 SMs x 1,980 MH
         # a cohort decode dispatch: 129 streams of 16,256 words, each word
         # read and its 32 int32 plane entries written
         ("huffman_decode_bits", 129, 16256, 129 * 16256 * (4 + 32 * 4)),
+        # the cohort's first v1 decode plane: each cell's int32 read and
+        # written and its mask byte read, and each row's int32 count
+        ("sort_compact", 118, 565_248, 118 * 565_248 * 9 + 118 * 4),
     ],
 )
 def test_bound_is_the_bytes_at_the_memory_rate(name, L, W, nbytes):
@@ -43,7 +48,7 @@ def test_k1_bound_at_one_engine_batch():
                                       ("probe_tile_decode", 25), ("probe_roundtrip", 60),
                                       ("probe_tile_text_encode", 59),
                                       ("probe_tile_text_decode", 37),
-                                      ("huffman_decode_bits", 5669)])
+                                      ("huffman_decode_bits", 5669), ("sort_compact", 7)])
 def test_plain_op_line(name, ops):
     got = chip_smoke.plain_ops_ms(name, 2048, 2560, INT32_RATE)
     assert got == pytest.approx(ops * 2048 * 2560 / INT32_RATE * 1e3, rel=1e-12)
@@ -52,11 +57,12 @@ def test_plain_op_line(name, ops):
 def test_every_kernel_and_probe_has_terms_a_count_and_a_row():
     names = list(chip_smoke.CHECKED)
     assert names == [*chip_smoke.KERNELS, *chip_smoke.PROBES, *chip_smoke.TEXT_PROBES,
-                     *chip_smoke.DECODE_KERNELS]
-    assert "huffman_decode_bits" in names
+                     *chip_smoke.DECODE_KERNELS, *chip_smoke.COMPACT_KERNELS]
+    assert "huffman_decode_bits" in names and "sort_compact" in names
     assert (set(names) == set(chip_smoke.BOUND_BYTES) == set(chip_smoke.PLAIN_OPS)
-            == set(cuda_rle.LAUNCHES) | set(cuda_huffman.LAUNCHES))
+            == set(cuda_rle.LAUNCHES) | set(cuda_huffman.LAUNCHES) | set(cuda_compact.LAUNCHES))
     assert not set(cuda_rle.LAUNCHES) & set(cuda_huffman.LAUNCHES)
+    assert not (set(cuda_rle.LAUNCHES) | set(cuda_huffman.LAUNCHES)) & set(cuda_compact.LAUNCHES)
     stats = {name: {"max_abs_err": 0, "mismatches": 0} for name in names}
     for name in names:
         row = chip_smoke._kernel_row(name, "src", "file:1", 3, stats, (2048, 2560), 0.01, 0.5)
@@ -94,6 +100,39 @@ def test_main_refuses_without_a_cuda_device(monkeypatch, capsys):
     assert chip_smoke.main() == 1
     out = capsys.readouterr()
     assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_main_refuses_unknown_arguments(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert chip_smoke.main(["--compact"]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and chip_smoke.COMPACT_AB_FLAG in out.err
+
+
+def test_compact_ab_times_each_setting_in_turns_and_checks_each_run(monkeypatch):
+    """The A/B runs the route under each VCFZ_COMPACT setting in its turns,
+    with no clock around it but its own, checks every result and holds S1's
+    launches to the device setting."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setitem(chip_smoke.COMPACT_LAUNCHES, "sort_compact", 0)
+    seen = []
+
+    def route(launch=True):
+        setting = os.environ["VCFZ_COMPACT"]
+        seen.append(setting)
+        if setting == "device" and launch:
+            chip_smoke.COMPACT_LAUNCHES["sort_compact"] += 1
+        return b"out"
+
+    ab = chip_smoke._ab(route, chip_smoke._check_equal(b"out", "v1 encode"))
+    assert tuple(seen) == chip_smoke.COMPACT_TURNS
+    assert {k: len(v) for k, v in ab["walls_s"].items()} == {"device": 2, "host": 2}
+    assert ab["device_over_host"] > 0
+    assert "ratio of the means" in chip_smoke._ab_text(ab)
+    with pytest.raises(SystemExit, match="differs"):
+        chip_smoke._ab(route, chip_smoke._check_equal(b"other", "v1 encode"))
+    with pytest.raises(SystemExit, match="sort_compact launched 0 times"):
+        chip_smoke._ab(lambda: route(launch=False), lambda _out: None)
 
 
 def test_spread_prints_the_median_and_range():
@@ -134,7 +173,15 @@ def test_vcfz_phase_runs_every_device_version_and_reads_the_routes_counter():
     assert set(chip_smoke.VCFZ_DECODE_VERSIONS) <= set(chip_smoke.VCFZ_VERSIONS)
     assert chip_smoke.VCFZ_CLI_VERSION in chip_smoke.VCFZ_DECODE_VERSIONS
     assert chip_smoke.HUFFMAN_LAUNCHES is cuda_huffman.LAUNCHES
-    assert set(chip_smoke.VCFZ_KERNELS) == {"rle_encode", "rle_decode", "huffman_decode_bits"}
+    assert chip_smoke.COMPACT_LAUNCHES is cuda_compact.LAUNCHES
+    assert set(chip_smoke.VCFZ_KERNELS) == {"rle_encode", "rle_decode", "huffman_decode_bits",
+                                            "sort_compact"}
+    # both routes run profiled once under each setting of the compaction, the
+    # card's default first; the opt-in A/B runs each setting twice, in turns
+    assert chip_smoke.COMPACT_SETTINGS == ("device", "host")
+    assert sorted(chip_smoke.COMPACT_TURNS) == ["device", "device", "host", "host"]
+    assert chip_smoke.COMPACT_TURNS[0] == chip_smoke.COMPACT_TURNS[-1]
+    assert "VCFZ_COMPACT" in chip_smoke.ROUTE_ENV
     assert set(chip_smoke.VCFZ_KERNELS) <= set(chip_smoke.CHECKED)
     assert all(callable(getattr(ops, name)) for name in chip_smoke.VCFZ_OPS)
 
@@ -158,14 +205,20 @@ def test_decode_layers_wrap_what_decompress_vcfz_calls(data_dir):
     from vcfc_tpu_torch.format import vcfz
 
     vcfc = (data_dir / "sv.vcfc").read_bytes()
-    for route, layers in ((None, chip_smoke.HOST_DECODE_LAYERS),
-                          ("device", chip_smoke.DEVICE_DECODE_LAYERS)):
-        z = vcfz.vcfz_from_vcfc(vcfc, block_lines=4, version=8)
-        with chip_smoke.wrapping({"device": (engine, "_device")},
-                                 lambda _n, _f: lambda _d: torch.device("cpu")):
-            with chip_smoke.layer_clock(layers) as seconds:
-                vcfz.decompress_vcfz(z, route=route)
-        assert all(s > 0 for s in seconds.values()), seconds
+    z = vcfz.vcfz_from_vcfc(vcfc, block_lines=4, version=8)
+    for route, layers, setting in ((None, chip_smoke.HOST_DECODE_LAYERS, None),
+                                   ("device", chip_smoke.DEVICE_DECODE_LAYERS, "device"),
+                                   ("device", chip_smoke.DEVICE_DECODE_LAYERS, "host")):
+        with chip_smoke.route_env({} if setting is None else {"VCFZ_COMPACT": setting}):
+            with chip_smoke.wrapping({"device": (engine, "_device")},
+                                     lambda _n, _f: lambda _d: torch.device("cpu")):
+                with chip_smoke.layer_clock(layers, chip_smoke.SYNCED_LAYERS) as seconds:
+                    assert vcfz.decompress_vcfz(z, route=route) == (data_dir / "sv.vcf").read_bytes()
+        # the host setting has no compaction step; every other layer ran
+        skipped = {"compaction and counts"} if setting == "host" else set()
+        assert all((s > 0) != (name in skipped) for name, s in seconds.items()), seconds
+    assert set(chip_smoke.ENTROPY_STEPS) <= set(chip_smoke.DEVICE_DECODE_LAYERS)
+    assert set(chip_smoke.SYNCED_LAYERS) <= set(chip_smoke.ENTROPY_STEPS)
 
 
 def test_cohort_dispatch_is_the_first_group_device_unpack_symbols_decodes(monkeypatch):
@@ -216,3 +269,101 @@ def test_annotated_wraps_and_restores():
                             torch.tensor([[7, 0]], dtype=torch.int32))
     assert ops.sympos_v3 is real
     assert out.tolist() == [[263, 3]]
+
+
+def test_compact_kernel_is_built_and_its_kernels_are_named_in_the_source():
+    """Phase 1 builds compact_kernels.cu; the profile finds S1's three
+    kernels by the names its source gives them."""
+    assert "compact_kernels" in chip_smoke.SOURCES
+    source = (chip_smoke.REPO / chip_smoke.COMPACT_SOURCE).read_text()
+    assert all(f"{name}(" in source for name in chip_smoke.COMPACT_PASSES)
+    by_name = {"(anonymous namespace)::compact_write(int const*, unsigned char const*)": 2.0,
+               "compact_count": 0.5, "huffman_emit": 7.0, "Memcpy DtoH": 9.0}
+    assert chip_smoke._compact_device_ms(by_name) == 2.5
+
+
+def test_trace_copies_reads_the_memcpy_bytes():
+    """The copies of a profiler trace by kind, with their bytes, and the
+    D2H total; a trace without byte counts reads as not measured."""
+    trace = {"traceEvents": [
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pinned)", "dur": 1500,
+         "args": {"bytes": 4096}},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pinned)", "dur": 500,
+         "args": {"bytes": 1024}},
+        {"cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pageable)", "dur": 250,
+         "args": {"bytes": 8}},
+        {"cat": "gpu_memcpy", "name": "Memcpy HtoD (Pinned -> Device)", "dur": 100,
+         "args": {"bytes": 64}},
+        {"cat": "kernel", "name": "compact_write", "dur": 9, "args": {}},
+        {"ph": "M", "name": "process_name"}]}
+    copies = chip_smoke.trace_copies(trace)
+    assert copies == {
+        "Memcpy DtoH (Device -> Pinned)": {"count": 2, "bytes": 5120, "ms": 2.0},
+        "Memcpy DtoH (Device -> Pageable)": {"count": 1, "bytes": 8, "ms": 0.25},
+        "Memcpy HtoD (Pinned -> Device)": {"count": 1, "bytes": 64, "ms": 0.1}}
+    assert chip_smoke.d2h(copies) == (5128, 2.25)
+    del trace["traceEvents"][2]["args"]["bytes"]
+    assert chip_smoke.d2h(chip_smoke.trace_copies(trace)) == (None, 2.25)
+    assert chip_smoke.d2h({}) == (0, 0)
+
+
+def test_sort_compact_library_computes_the_plain_function():
+    """The yardstick of S1's library_ms, the JAX package's stable sort and a
+    gather, computes what sort_compact_plain computes."""
+    from vcfc_tpu_torch.ops.vcfz_device import sort_compact_plain
+
+    rng = np.random.default_rng(0)
+    for name, values, mask in chip_smoke.compact_cases(rng)[:12]:
+        v, m = torch.from_numpy(values), torch.from_numpy(mask)
+        for got, want in zip(chip_smoke.sort_compact_library(v, m), sort_compact_plain(v, m)):
+            assert torch.equal(got, want), name
+
+
+def test_compact_cases_hold_the_edges():
+    cases = chip_smoke.compact_cases(np.random.default_rng(1))
+    assert len(cases) == 24
+    for name, values, mask in cases:
+        assert values.dtype == np.int32 and mask.dtype == bool and values.shape == mask.shape
+        assert not mask[0].any() and mask[1 % len(mask)].all() and mask[2 % len(mask), -1]
+    widths = {values.shape[1] for _name, values, _mask in cases}
+    assert any(w % 4096 for w in widths) and max(widths) > 32 * 4096
+
+
+def test_dispatch_bits_are_the_payloads_bits():
+    from vcfc_tpu_torch import engine
+    from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
+    from vcfc_tpu_torch.format import vcfz
+
+    vcfc = engine.compress(generate_realistic_vcf(40, 300, seed=3), force_device=True,
+                           device="cpu")
+    z = vcfz.vcfz_from_vcfc(vcfc, block_lines=32, version=1)
+    reader = vcfz.VcfzReader.parse(z)
+    assert chip_smoke.dispatch_bits(z, 4) == [b["payload_len"] * 8 for b in reader.blocks[:4]]
+
+
+@pytest.mark.parametrize("version", [1, 5, 8])
+def test_decode_d2h_model_counts_what_the_decode_brings_back(version, monkeypatch):
+    """The model's bytes are those of the planes and slices the entropy
+    decode brings back on the CPU, on both branches, give or take the
+    spurious starts of each stream's last byte (under a bucket)."""
+    from vcfc_tpu_torch import engine
+    from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
+    from vcfc_tpu_torch.format import vcfz
+    from vcfc_tpu_torch.format import vcfz_device as route
+    from vcfc_tpu_torch.ops import huffman_device as hd
+
+    vcfc = engine.compress(generate_realistic_vcf(60, 400, seed=4), force_device=True,
+                           device="cpu")
+    z = vcfz.vcfz_from_vcfc(vcfc, block_lines=32, version=version)
+    monkeypatch.setattr(hd, "_MAX_DISPATCH_BITS", 3 * 4096 * 4)
+    monkeypatch.setattr(chip_smoke, "_MAX_DISPATCH_BITS", 3 * 4096 * 4)
+    seen = []
+    real = hd._download
+    monkeypatch.setattr(hd, "_download", lambda plane, stage: seen.append(plane.nbytes + 4 * (
+        stage is not None) * plane.shape[0]) or real(plane, stage))
+    model = chip_smoke.decode_d2h_model(z)
+    for setting, want in zip(("host", "device"), model):
+        monkeypatch.setenv("VCFZ_COMPACT", setting)
+        seen.clear()
+        assert route.vcfz_to_vcfc_device(z, device="cpu") == vcfc
+        assert len(seen) > 1 and sum(seen) == want

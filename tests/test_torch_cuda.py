@@ -16,8 +16,9 @@ from vcfc_tpu_torch import engine
 from vcfc_tpu_torch.eval.edge_cases import encode_edge_cases, flag_edge_cases, text_edge_cases
 from vcfc_tpu_torch.eval.huffman_cases import decode_cases
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
-from vcfc_tpu_torch.ops import _build, cuda_huffman, cuda_rle, probe
+from vcfc_tpu_torch.ops import _build, cuda_compact, cuda_huffman, cuda_rle, probe
 from vcfc_tpu_torch.ops import huffman_device as hd
+from vcfc_tpu_torch.ops import vcfz_device as vd
 from vcfc_tpu_torch.ops.rle import (
     rle_decode_plain,
     rle_encode_plain,
@@ -461,3 +462,108 @@ def test_vcfz_device_decode_on_cuda(cuda_device, version):
     assert vcfz.decompress_vcfz(z, route="device", device=cuda_device) == vcf
     assert vcfz_device.DECODES[version] == before[0] + 2
     assert cuda_huffman.LAUNCHES["huffman_decode_bits"] > before[1]
+
+
+@pytest.mark.parametrize("B,n", [(118, 565_248), (7, 4096), (5, 9000), (3, 140_000), (4, 1),
+                                 (1, 4097), (300, 257)])
+@pytest.mark.parametrize("density", [0.0, 0.18, 0.5, 1.0])
+def test_sort_compact_matches_plain(cuda_device, B, n, density):
+    """S1 against sort_compact_plain, on the card and on the CPU, element by
+    element on the whole row and on the counts, with an empty row, a full
+    row and a row masked on its last cell only; sort_compact on a CUDA
+    tensor launches it, with a bool mask and with a uint8 one."""
+    rng = np.random.default_rng(B * 7 + n)
+    values = rng.integers(-(1 << 31), 1 << 31, (B, n), dtype=np.int64).astype(np.int32)
+    mask = rng.random((B, n)) < density
+    mask[0] = False
+    mask[1 % B] = True
+    mask[2 % B, -1] = True
+    v, m = torch.from_numpy(values).to(cuda_device), torch.from_numpy(mask).to(cuda_device)
+    before = cuda_compact.LAUNCHES["sort_compact"]
+    got = vd.sort_compact(v, m)
+    got8 = vd.sort_compact(v, m.to(torch.uint8))
+    assert cuda_compact.LAUNCHES["sort_compact"] == before + 2
+    want = vd.sort_compact_plain(v, m)
+    want_cpu = vd.sort_compact_plain(torch.from_numpy(values), torch.from_numpy(mask))
+    for g, g8, w, wc in zip(got, got8, want, want_cpu):
+        assert g.dtype == torch.int32 and g.device.type == "cuda"
+        assert torch.equal(g, w) and torch.equal(g8, w) and torch.equal(g.cpu(), wc)
+
+
+def test_sort_compact_on_the_cohort_decode_plane(cuda_device, monkeypatch):
+    """S1 on H1's planes of a realistic container's payloads, masked to
+    each stream's bits, as the decode's compaction branch gives it."""
+    from vcfc_tpu_torch.format import vcfz
+
+    vcfc = engine.compress(generate_realistic_vcf(300, 1500, seed=16), force_device=True,
+                           device="cpu")
+    reader = vcfz.VcfzReader.parse(vcfz.vcfz_from_vcfc(vcfc, block_lines=64, version=1))
+    base = reader.payload_base
+    payloads = [bytes(reader.raw[base + b["payload_off"] : base + b["payload_off"]
+                                 + b["payload_len"]]) for b in reader.blocks]
+    s1, s2 = hd._split_grid(max(len(p) for p in payloads) * 8)
+    limits, adjust, _ = hd.device_decode_tables(reader.books[0])
+    words = torch.from_numpy(hd.stream_words(payloads, s1, s2)).to(cuda_device)
+    plane = hd.decode_bits(words, limits, adjust, s1=s1, s2=s2)
+    nbits = torch.tensor([len(p) * 8 for p in payloads], device=cuda_device)
+    mask = (plane != 0) & (torch.arange(plane.shape[1], device=cuda_device)[None, :]
+                           < nbits[:, None])
+    got = vd.sort_compact(plane, mask)
+    want = vd.sort_compact_plain(plane, mask)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    n_syms = [int(b["n_symbols"]) for b in reader.blocks]
+    assert (got[1].cpu().numpy() >= np.array(n_syms)).all()
+
+
+def test_compaction_ops_on_cuda_match_cpu(cuda_device):
+    """pack_cells_compact, compact_payloads_device and esc_plane_device on
+    the card equal their CPU form."""
+    from vcfc_tpu_torch.ops.huffman import CTX_INIT, context_codebooks
+
+    rng = np.random.default_rng(23)
+    grid = np.where(rng.random((6, 256 * 2560)) < 0.2,
+                    rng.integers(1, 296, (6, 256 * 2560)), 0).astype(np.int32)
+    books = context_codebooks([row[row != 0].astype(np.int64) for row in grid], 296)
+    entries = torch.from_numpy(vd.pack_entries(books))
+    cells = torch.from_numpy(grid)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        sc, cnt = vd.sort_compact(cells.to(dev), (cells != 0).to(dev))
+        kb = vd._bucket(int(cnt.max()), cells.shape[1])
+        packed = vd.pack_cells_compact(sc[:, :kb], cnt, entries.to(dev), 296, CTX_INIT,
+                                       n_ctx=4, v4=False)
+        outs.append((packed, vd.compact_payloads_device(*packed[:3], vd.HostStage(dev))))
+    (cpu_packed, cpu_payloads), (gpu_packed, gpu_payloads) = outs
+    for g, w in zip(gpu_packed, cpu_packed):
+        assert torch.equal(g.cpu(), w)
+    assert gpu_payloads == cpu_payloads
+    lines = np.repeat(np.arange(0, 64, 3, dtype=np.int32), 2)
+    samples = np.tile(np.array([5, 2503], np.int32), len(lines) // 2)
+    ids = np.arange(len(lines), dtype=np.int32)
+    assert torch.equal(vd.esc_plane_device(lines, samples, ids, 64, 2560, cuda_device).cpu(),
+                       vd.esc_plane_device(lines, samples, ids, 64, 2560, "cpu"))
+
+
+@pytest.mark.parametrize("setting", ["device", "host"])
+@pytest.mark.parametrize("version", [1, 2, 3, 5, 8])
+def test_vcfz_routes_on_cuda_under_both_settings(cuda_device, monkeypatch, setting, version):
+    """Both routes on the card under VCFZ_COMPACT=device and =host: the host
+    writer's bytes in one batch and in batches of 4 blocks, the decode
+    restoring the input; S1 launches under device only."""
+    from vcfc_tpu_torch.format import vcfz, vcfz_device
+
+    monkeypatch.setenv("VCFZ_COMPACT", setting)
+    vcf = generate_realistic_vcf(300, 1500, seed=14)
+    vcfc = engine.compress(vcf, force_device=True, device="cpu")
+    want = vcfz.vcfz_from_vcfc(vcfc, version=version)
+    want16 = vcfz.vcfz_from_vcfc(vcfc, block_lines=16, version=version)
+    before = cuda_compact.LAUNCHES["sort_compact"]
+    assert vcfz.vcfz_from_vcfc(vcfc, version=version, route="device", device=cuda_device) == want
+    monkeypatch.setattr(vcfz_device, "_MAX_CELLS", 16 * 384 * 4)
+    assert vcfz_device.vcfz_from_vcfc_device(vcfc, 16, version, device=cuda_device) == want16
+    encoded = cuda_compact.LAUNCHES["sort_compact"]
+    assert (encoded > before) == (setting == "device")
+    if version in vcfz_device.DECODE_VERSIONS:
+        for z in (want, want16):
+            assert vcfz.decompress_vcfz(z, route="device", device=cuda_device) == vcf
+        assert (cuda_compact.LAUNCHES["sort_compact"] > encoded) == (setting == "device")

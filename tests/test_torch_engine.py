@@ -293,4 +293,5 @@ def test_port_imports_neither_jax_nor_triton():
             "vcfc_tpu_torch.index.scan", "vcfc_tpu_torch.query.coordinate",
             "vcfc_tpu_torch.utils.refmap", "vcfc_tpu_torch.cli",
             "vcfc_tpu_torch.ops.huffman_device", "vcfc_tpu_torch.ops.cuda_huffman",
-            "vcfc_tpu_torch.eval.huffman_cases"} <= set(out["imported"])
+            "vcfc_tpu_torch.eval.huffman_cases",
+            "vcfc_tpu_torch.ops.cuda_compact"} <= set(out["imported"])

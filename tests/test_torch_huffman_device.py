@@ -5,7 +5,9 @@ on the CPU, against vcfc_tpu.ops.huffman_device on JAX's CPU backend.
 ``_lens_and_syms``, ``decode_bits`` (the plane, element by element, on the
 cases of ``eval.huffman_cases``) and ``_split_grid`` are held to the JAX
 package's; ``device_unpack_symbols`` to the JAX package's and to the host
-``unpack_symbols``, its 'invalid Huffman stream' gates included.  A numpy
+``unpack_symbols``, its 'invalid Huffman stream' gates included, on the
+dense branch and under ``VCFZ_COMPACT=device`` (the compaction branch,
+also against the dense one).  A numpy
 model of the Hopper kernel's three passes (segment maps from 15 entry
 offsets, the chain, the emitting walk; ``csrc/huffman_kernels.cu``) is
 held to ``decode_bits_plain`` on the same cases, so that its arithmetic is
@@ -258,3 +260,105 @@ def test_unpack_needs_cuda_by_default(monkeypatch):
     book, streams, payloads = _streams(6, n=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         th.device_unpack_symbols(payloads, [len(s) for s in streams], book)
+
+
+# --- device_unpack_symbols under VCFZ_COMPACT=device ------------------------------
+
+
+@pytest.fixture
+def compact(monkeypatch):
+    """VCFZ_COMPACT=device, which both packages read."""
+    monkeypatch.setenv("VCFZ_COMPACT", "device")
+
+
+def _assert_compacted(payloads, n_syms, book, monkeypatch):
+    """The compaction branch against the JAX package's and against the
+    port's dense branch (VCFZ_COMPACT=host)."""
+    got = _assert_both(payloads, n_syms, book)
+    monkeypatch.setenv("VCFZ_COMPACT", "host")
+    dense = th.device_unpack_symbols(payloads, n_syms, book, device="cpu")
+    monkeypatch.setenv("VCFZ_COMPACT", "device")
+    for g, d in zip(got, dense):
+        np.testing.assert_array_equal(g, d)
+    return got
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_unpack_compacted_random_streams(seed, compact, monkeypatch):
+    book, streams, payloads = _streams(seed)
+    calls = []
+    real = th._compact_rows
+    monkeypatch.setattr(th, "_compact_rows", lambda *a: calls.append(1) or real(*a))
+    got = _assert_compacted(payloads, [len(s) for s in streams], book, monkeypatch)
+    for g, s in zip(got, streams):
+        np.testing.assert_array_equal(g, s)
+    assert calls  # the compaction branch ran
+
+
+def test_unpack_compacted_empty_payloads_and_straddles(compact, monkeypatch):
+    book, streams, payloads = _streams(4, n=3)
+    _assert_compacted([b"", payloads[0], b""], [0, len(streams[0]), 0], book, monkeypatch)
+    lengths = np.zeros(130, np.uint8)
+    lengths[1:129] = 7
+    book = Codebook.from_lengths(lengths)
+    stream = (np.arange(997) % 128 + 1).astype(np.int64)
+    (got,) = _assert_compacted([pack_symbols(stream, book)[0]], [len(stream)], book, monkeypatch)
+    np.testing.assert_array_equal(got, stream)
+
+
+def test_unpack_compacted_truncated_stream_raises(compact):
+    """Each row is masked to its stream's bits before the compaction, so a
+    truncated payload still fails the count gate (the JAX package's
+    test_truncated_stream_gate_under_device_compact); the whole stream
+    decodes."""
+    book = Codebook.from_frequencies(np.arange(1, 40))
+    stream = np.arange(3000, dtype=np.int64) % 39
+    payload, _ = pack_symbols(stream, book)
+    for unpack, bk, kwargs in ((th.device_unpack_symbols, book, {"device": "cpu"}),
+                               (jh.device_unpack_symbols, _jax_book(book), {})):
+        with pytest.raises(ValueError, match="invalid Huffman"):
+            unpack([payload[: len(payload) // 2]], [len(stream)], bk, **kwargs)
+        np.testing.assert_array_equal(unpack([payload], [len(stream)], bk, **kwargs)[0], stream)
+
+
+def test_unpack_compacted_ordinal_outside_the_book_raises(compact):
+    book = Codebook.from_frequencies(np.array([0, 9]))
+    with pytest.raises(ValueError, match="invalid Huffman"):
+        th.device_unpack_symbols([b"\xff" * 64], [10], book, device="cpu")
+    with pytest.raises(ValueError, match="invalid Huffman"):
+        jh.device_unpack_symbols([b"\xff" * 64], [10], _jax_book(book))
+
+
+@pytest.mark.parametrize("max_bits", [4096, 3 * 8192])
+def test_unpack_compacted_in_several_dispatches(monkeypatch, compact, max_bits):
+    """_MAX_DISPATCH_BITS cut small in both packages: several dispatches,
+    each compacted, through buffers the dispatches reuse."""
+    book, streams, payloads = _streams(5)
+    calls = []
+    real = th._compact_rows
+
+    def spy(plane, nbits):
+        calls.append(plane.shape[0])
+        return real(plane, nbits)
+
+    monkeypatch.setattr(th, "_compact_rows", spy)
+    monkeypatch.setattr(th, "_MAX_DISPATCH_BITS", max_bits)
+    monkeypatch.setattr(jh, "_MAX_DISPATCH_BITS", max_bits)
+    for g, s in zip(_assert_both(payloads, [len(s) for s in streams], book), streams):
+        np.testing.assert_array_equal(g, s)
+    assert len(calls) > 1 and sum(calls) == len(payloads)
+
+
+def test_stream_words_into_a_buffer():
+    _book, _streams_, payloads = _streams(7, n=4)
+    s1, s2 = th._split_grid(max(len(p) for p in payloads) * 8)
+    want = th.stream_words(payloads, s1, s2)
+    for row, p in zip(want, payloads):  # big-endian words, zero-padded
+        padded = p + bytes(s1 * s2 // 8 - len(p))
+        np.testing.assert_array_equal(row, np.frombuffer(padded, ">u4").astype(np.int64)
+                                      .astype(np.uint32).view(np.int32))
+    buf = np.full(want.shape, -1, np.int32)
+    assert th.stream_words(payloads, s1, s2, out=buf) is buf
+    np.testing.assert_array_equal(buf, want)
+    with pytest.raises(ValueError, match="C-contiguous int32"):
+        th.stream_words(payloads, s1, s2, out=np.zeros(want.shape, np.int64))

@@ -8,8 +8,12 @@ and ``bad``.  The route (``device="cpu"``) is held byte for byte to the JAX
 package's host writer for v1, v2, v3, v5 and v8; v4, v6 and v7 raise
 NotImplementedError.  The device decode (``vcfz_to_vcfc_device``) is held
 to the JAX package's and to the host reconstruction for v1, v5 and v8;
-v2/v3 return None, v4/v6/v7 raise NotImplementedError.  The shapes stay
-small: XLA's CPU compile of ``pack_cells`` is slow.
+v2/v3 return None, v4/v6/v7 raise NotImplementedError.  Under
+``VCFZ_COMPACT=device`` (on-device compaction: ``sort_compact``,
+``pack_cells_compact``, ``compact_payloads_device``, ``esc_plane_device``)
+both routes give the same bytes, and every compact pack's width comes from
+its own counts; ``device_compaction`` reads the env per device type.  The
+shapes stay small: XLA's CPU compile of ``pack_cells`` is slow.
 """
 
 import jax.numpy as jnp
@@ -26,6 +30,7 @@ from vcfc_tpu.ops import vcfz_device as jd
 from vcfc_tpu_torch.eval.random_vcf import generate_realistic_vcf
 from vcfc_tpu_torch.format import vcfz as tz
 from vcfc_tpu_torch.format import vcfz_device as tzd
+from vcfc_tpu_torch.host.fast import parse_vcfc_native
 from vcfc_tpu_torch.ops import vcfz_device as td
 
 CPU = "cpu"
@@ -395,3 +400,160 @@ def test_route_needs_cuda_by_default(monkeypatch):
         tz.vcfz_from_vcfc(_fuzz_vcfc(502, 20, 30), route="device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tz.decompress_vcfz(jz.vcfz_from_vcfc(_fuzz_vcfc(502, 20, 30)))
+
+
+# --- VCFZ_COMPACT=device: on-device compaction on both routes ---------------------
+
+
+@pytest.fixture
+def compact(monkeypatch):
+    """VCFZ_COMPACT=device, which both packages read."""
+    monkeypatch.setenv("VCFZ_COMPACT", "device")
+
+
+@pytest.fixture
+def compact_calls(monkeypatch):
+    """Records each pack_cells_compact call's (width, counts) and counts
+    sort_compact's calls, in the port's ops."""
+    calls = {"pack_cells_compact": [], "sort_compact": 0}
+    pack, sort = td.pack_cells_compact, td.sort_compact
+
+    def spy_pack(sym_c, counts, *args, **kwargs):
+        calls["pack_cells_compact"].append((sym_c.shape[1], counts.clone()))
+        return pack(sym_c, counts, *args, **kwargs)
+
+    def spy_sort(values, mask):
+        calls["sort_compact"] += 1
+        return sort(values, mask)
+
+    monkeypatch.setattr(td, "pack_cells_compact", spy_pack)
+    monkeypatch.setattr(td, "sort_compact", spy_sort)
+    return calls
+
+
+def _widths_come_from_the_counts(calls, n_cells):
+    """Every pack_cells_compact call got the width _bucket gives its own
+    counts, which is no less than the largest of them (no row is cut)."""
+    assert calls["pack_cells_compact"]
+    for width, counts in calls["pack_cells_compact"]:
+        top = int(counts.max()) if counts.numel() else 0
+        assert width == td._bucket(top, n_cells) >= top
+
+
+@pytest.mark.parametrize("version", DEVICE_VERSIONS)
+def test_route_under_device_compaction(version, compact, compact_calls):
+    """The JAX package's TestDeviceCompact::test_encode_byte_identical: the
+    host writer's bytes; the route compacts on the device."""
+    vcfc = _fuzz_vcfc()
+    before = tzd.ENCODES[version]
+    got = tz.vcfz_from_vcfc(vcfc, version=version, route="device", device=CPU)
+    assert got == jz.vcfz_from_vcfc(vcfc, version=version)
+    assert tzd.ENCODES[version] == before + 1
+    blocks = -(-90 // 256)
+    packs = blocks * (4 if version == 8 else 1)
+    assert len(compact_calls["pack_cells_compact"]) == packs
+    # one sort a pack, and one a payload compaction (v3+: the required columns too)
+    assert compact_calls["sort_compact"] == 2 * packs + (version >= 3)
+    _widths_come_from_the_counts(compact_calls, 128 * 256)
+
+
+@pytest.mark.parametrize("version", DEVICE_VERSIONS)
+def test_route_under_device_compaction_partial_block_and_batches(version, compact,
+                                                                 compact_calls, monkeypatch):
+    """A trailing partial block (203 lines in blocks of 16) in batches of 4
+    blocks, then of one: the bucketed slices and the per-batch escape
+    scatter at their edges (the JAX package's
+    test_partial_block_and_multi_batch); the decode restores the .vcfc."""
+    vcfc = _fuzz_vcfc(503, 50, 203)
+    want = jz.vcfz_from_vcfc(vcfc, block_lines=16, version=version)
+    for cells in (16 * 128 * 4, 1):
+        monkeypatch.setattr(tzd, "_MAX_CELLS", cells)
+        assert tzd.vcfz_from_vcfc_device(vcfc, 16, version, device=CPU) == want
+    _widths_come_from_the_counts(compact_calls, 16 * 128)
+    if version in DECODE_VERSIONS:
+        assert tzd.vcfz_to_vcfc_device(want, device=CPU) == vcfc
+
+
+def test_escape_dense_v8_under_device_compaction(compact):
+    """Escape-dense input: the escape plane scattered on the device keeps
+    each id on its cell (the JAX package's test_escape_order_preserved)."""
+    vcfc = _fuzz_vcfc(504, 30, 60, sv_every=3)
+    for version in DEVICE_VERSIONS:
+        got = tz.vcfz_from_vcfc(vcfc, version=version, route="device", device=CPU)
+        assert got == jz.vcfz_from_vcfc(vcfc, version=version)
+    assert tzd.vcfz_to_vcfc_device(got, device=CPU) == vcfc
+    assert int(parse_vcfc_native(vcfc).esc_count.sum()) > 100
+
+
+def test_escape_plane_scattered_on_the_device(compact, monkeypatch):
+    """Under compaction every batch's escape plane comes from
+    esc_plane_device, which gets every escape cell once."""
+    vcfc = _fuzz_vcfc(504, 30, 60, sv_every=3)
+    calls = []
+    real = td.esc_plane_device
+    monkeypatch.setattr(td, "esc_plane_device", lambda *a: calls.append(len(a[0])) or real(*a))
+    monkeypatch.setattr(tzd, "_MAX_CELLS", 1)
+    assert tzd.vcfz_from_vcfc_device(vcfc, 4, 3, device=CPU) == jz.vcfz_from_vcfc(vcfc, 4, 3)
+    assert len(calls) == 15 and sum(calls) == int(parse_vcfc_native(vcfc).esc_count.sum())
+
+
+@pytest.mark.parametrize("version", DECODE_VERSIONS)
+@pytest.mark.parametrize("name", list(DECODE_CORPORA))
+def test_device_decode_under_device_compaction(name, version, data_dir, compact,
+                                               compact_calls):
+    """The decode under VCFZ_COMPACT=device: the input .vcfc, and the JAX
+    package's device decode's bytes under the same setting."""
+    make, block_lines = DECODE_CORPORA[name]
+    vcfc = make(data_dir)
+    z = jz.vcfz_from_vcfc(vcfc, block_lines, version)
+    got = tzd.vcfz_to_vcfc_device(z, device=CPU)
+    assert got == vcfc == jdz.vcfz_to_vcfc_device(z)
+    assert compact_calls["sort_compact"] > 0
+
+
+def test_device_decode_under_device_compaction_of_the_cohort(cohort_vcfc, compact):
+    for version in DECODE_VERSIONS:
+        z = tz.vcfz_from_vcfc(cohort_vcfc, version=version, route="device", device=CPU)
+        assert z == jz.vcfz_from_vcfc(cohort_vcfc, version=version)
+        assert tzd.vcfz_to_vcfc_device(z, device=CPU) == cohort_vcfc
+
+
+def test_corrupt_payload_raises_under_device_compaction(compact):
+    vcfc = compress_bytes(make_vcf(42, 40, 120))
+    z = bytearray(jz.vcfz_from_vcfc(vcfc, version=5))
+    r = jz.VcfzReader.parse(bytes(z))
+    blk = r.blocks[0]
+    start = r.payload_base + blk["payload_off"]
+    z[start : start + blk["payload_len"]] = b"\xff" * blk["payload_len"]
+    with pytest.raises(ValueError, match="invalid Huffman"):
+        tzd.vcfz_to_vcfc_device(bytes(z), device=CPU)
+
+
+def test_host_setting_keeps_the_dense_branch(monkeypatch, compact_calls):
+    """VCFZ_COMPACT=host on both routes: no compaction on the device, the
+    same bytes."""
+    monkeypatch.setenv("VCFZ_COMPACT", "host")
+    vcfc = _fuzz_vcfc()
+    for version in DECODE_VERSIONS:
+        z = tz.vcfz_from_vcfc(vcfc, version=version, route="device", device=CPU)
+        assert z == jz.vcfz_from_vcfc(vcfc, version=version)
+        assert tzd.vcfz_to_vcfc_device(z, device=CPU) == vcfc
+    assert compact_calls == {"pack_cells_compact": [], "sort_compact": 0}
+
+
+@pytest.mark.parametrize("env,cpu,cuda", [(None, False, True), ("device", True, True),
+                                          ("host", False, False), ("other", False, True)])
+def test_device_compaction_reads_the_env_per_device_type(monkeypatch, env, cpu, cuda):
+    """VCFZ_COMPACT=device|host forces the branch (as the JAX package's
+    device_compaction() does); unset or another value, the CPU takes the
+    host branch and a CUDA device the device branch."""
+    if env is None:
+        monkeypatch.delenv("VCFZ_COMPACT", raising=False)
+    else:
+        monkeypatch.setenv("VCFZ_COMPACT", env)
+    assert td.device_compaction("cpu") is cpu
+    assert td.device_compaction(torch.device("cpu")) is cpu
+    assert td.device_compaction("cuda") is cuda
+    assert td.device_compaction(torch.device("cuda", 0)) is cuda
+    if env in ("device", "host"):
+        assert jd.device_compaction() is cpu

@@ -1,8 +1,8 @@
 """Device-route `.vcfz` writer and reader: the port of
 ``vcfc_tpu/format/vcfz_device.py``'s ``vcfz_from_vcfc_device`` for the
 versions without the vertical transform (v1, v2, v3, v5 and v8), and of its
-``vcfz_to_vcfc_device`` for the order-0 versions (v1, v5 and v8), on the
-dense path.
+``vcfz_to_vcfc_device`` for the order-0 versions (v1, v5 and v8), each
+with and without the on-device compaction.
 
 The output is BYTE-IDENTICAL to the host writer (``format/vcfz.py``):
 
@@ -17,11 +17,24 @@ The output is BYTE-IDENTICAL to the host writer (``format/vcfz.py``):
                     payloads
 
 Dense O(cells) work runs as PyTorch ops on ``device`` (None: the CUDA
-device); the host does the O(outputs) compactions (``compact_payloads``
-over the positional word plane) and the tiny codebook builds.  The escape
+device); the codebook builds are tiny and run on the host, and the escape
 dictionary and the per-(context, symbol) frequencies stay on the host:
 they are O(symbols), and they anchor the byte contract to the same
-``context_codebooks`` the host writer uses.
+``context_codebooks`` the host writer uses.  ``VCFZ_COMPACT``
+(``ops.vcfz_device.device_compaction``: unset, ``device`` on a CUDA
+device, ``host`` on the CPU) picks where the O(outputs) compactions run,
+with the same bytes either way:
+
+  host     the escape-id plane is built dense on the host and sent; the
+           dense word plane and emit mask come back and the host compacts
+           them (``compact_payloads``)
+  device   the escape-id plane is scattered on the device from its sparse
+           triples (``esc_plane_device``); ``sort_compact`` (the Hopper
+           kernel S1 on the card) front-compacts each block's symbols and
+           ``pack_cells_compact`` packs a slice of them bucketed from the
+           counts (v8: one sort and one pack a context); the packed words
+           are compacted on the device too (``compact_payloads_device``)
+           and only a bucketed slice comes back, through a pinned buffer
 
 Returns None (the caller falls back to the host writer) for structurally
 unsupported inputs only: zero lines, zero samples, or lines the native
@@ -35,9 +48,11 @@ The decode (``vcfz_to_vcfc_device``) entropy-decodes every order-0 stream
 of a container block-parallel on the device (``ops.huffman_device``, the
 Hopper kernel of ``csrc/huffman_kernels.cu`` on the card): v1/v5 symbol
 payloads, v8's per-context sub-payloads (re-merged on the host by
-``_merge_ctx_streams``) and the v3+ required-columns payloads; the host
-then assembles the .vcfc lines from the decoded streams.  Each container it
-decodes adds one to ``DECODES[version]``.
+``_merge_ctx_streams``) and the v3+ required-columns payloads; under
+``VCFZ_COMPACT=device`` the decoded planes are compacted on the device
+(S1) and only their symbols come back.  The host then assembles the .vcfc
+lines from the decoded streams.  Each container it decodes adds one to
+``DECODES[version]``.
 """
 
 from __future__ import annotations
@@ -83,12 +98,14 @@ class _BatchFeed:
     positions from the native escape side channel, both enumerated in
     (line, sample) order."""
 
-    def __init__(self, parsed, all_syms: np.ndarray, S_pad: int, lpb: int):
+    def __init__(self, parsed, all_syms: np.ndarray, S_pad: int, lpb: int,
+                 device_eb: bool = False):
         self.flags = parsed.flags
         self.W = parsed.flags.shape[1]
         self.S_pad = S_pad
         self.lpb = lpb
         self.L = parsed.n_lines
+        self.device_eb = device_eb
         self.esc_lines = np.repeat(
             np.arange(self.L, dtype=np.int64),
             parsed.esc_count.astype(np.int64),
@@ -96,25 +113,53 @@ class _BatchFeed:
         self.esc_samples = parsed.esc_sample
         self.esc_ids = (all_syms[all_syms >= 256] - 256).astype(np.int32)
 
-    def batch(self, b0: int):
-        """(flag plane, escape-id plane) of the batch at line b0."""
+    def batch(self, b0: int, device):
+        """(flag plane, escape-id plane) of the batch at line b0, on
+        ``device``.  With ``device_eb`` the escape plane is scattered on the
+        device from the sparse triples (O(escapes) H2D) instead of being
+        built dense on the host and sent (4 bytes a cell)."""
         b1 = min(b0 + self.lpb, self.L)
         fb = np.zeros((self.lpb, self.S_pad), np.uint8)
         fb[: b1 - b0, : self.W] = self.flags[b0:b1]
         k0, k1 = np.searchsorted(self.esc_lines, [b0, b1])
-        eb = np.zeros((self.lpb, self.S_pad), np.int32)
-        if k1 > k0:
-            eb[self.esc_lines[k0:k1] - b0, self.esc_samples[k0:k1]] = self.esc_ids[k0:k1]
-        return fb, eb
+        if self.device_eb:
+            eb = ops.esc_plane_device(
+                (self.esc_lines[k0:k1] - b0).astype(np.int32),
+                self.esc_samples[k0:k1].astype(np.int32), self.esc_ids[k0:k1],
+                self.lpb, self.S_pad, device)
+        else:
+            eb = np.zeros((self.lpb, self.S_pad), np.int32)
+            if k1 > k0:
+                eb[self.esc_lines[k0:k1] - b0, self.esc_samples[k0:k1]] = self.esc_ids[k0:k1]
+            eb = torch.from_numpy(eb).to(device)
+        return torch.from_numpy(fb).to(device), eb
 
 
-def _payloads(packed) -> list[bytes]:
-    """pack_cells' outputs -> per-block payload bytes, on the host."""
+def _payloads(packed, stage) -> list[bytes]:
+    """A packer's outputs -> per-block payload bytes: compacted on the
+    device and brought back through the pinned ``stage``, or (``stage``
+    None) brought back dense and compacted on the host."""
     word_val, emit, total_bits, bad = packed
     if bool(bad.any()):  # the books cover the streams they were built from
         raise RuntimeError("device packer: symbol without codeword")
+    if stage is not None:
+        return ops.compact_payloads_device(word_val, emit, total_bits, stage)
     return ops.compact_payloads(word_val.cpu().numpy(), emit.cpu().numpy(),
                                 total_bits.cpu().numpy())
+
+
+def _pack_compact(cells, mask, entries, m_base: int, ctx_init: int, n_ctx: int):
+    """The compact-space pack (the JAX package's, under compaction): one
+    ``sort_compact`` brings each block's masked symbols to its front, in
+    stream order, and ``pack_cells_compact`` packs a leading slice whose
+    width is bucketed from the same counts, so no row is cut.  Returns (the
+    packer's outputs, the counts on the host)."""
+    compacted, counts = ops.sort_compact(cells, mask)
+    counts_host = counts.cpu().numpy()
+    kb = ops._bucket(int(counts_host.max(initial=0)), cells.shape[1])
+    packed = ops.pack_cells_compact(compacted[:, :kb], counts, entries, m_base, ctx_init,
+                                    n_ctx=n_ctx, v4=False)
+    return packed, counts_host
 
 
 def vcfz_from_vcfc_device(
@@ -158,7 +203,10 @@ def vcfz_from_vcfc_device(
     lpb = min(_lines_per_batch(block_lines, S_pad), n_blocks * block_lines)
     bpb = lpb // block_lines  # blocks per batch
     batch_starts = list(range(0, L, lpb))
-    feed = _BatchFeed(parsed, all_syms3, S_pad, lpb)
+    compact = ops.device_compaction(device)
+    # under compaction every packed slice comes back through one pinned buffer
+    stage = ops.HostStage(device) if compact else None
+    feed = _BatchFeed(parsed, all_syms3, S_pad, lpb, device_eb=compact)
 
     n_symbols = 256 + len(esc_list)
     m_base = n_symbols  # no vertical-match band: m_base only bounds the classes
@@ -186,8 +234,8 @@ def vcfz_from_vcfc_device(
         entries = torch.from_numpy(ops.pack_entries(books)).to(device)
     for gi, b0 in enumerate(batch_starts):
         take = min(n_blocks - gi * bpb, bpb)
-        fb, eb = feed.batch(b0)
-        sp = ops.sympos_v3(torch.from_numpy(fb).to(device), torch.from_numpy(eb).to(device))
+        fb, eb = feed.batch(b0, device)
+        sp = ops.sympos_v3(fb, eb)
         # the batch's blocks, one row each (rows past the last block hold
         # only padding and are not packed)
         cells = sp.reshape(bpb, block_lines * S_pad)[:take]
@@ -201,10 +249,15 @@ def vcfz_from_vcfc_device(
             parts_by_ctx, counts_by_ctx = [], []
             for c in range(N_CTX):
                 mask = present & (ctxp == c)
-                parts_by_ctx.append(_payloads(
-                    ops.pack_cells(cells, mask, entries_by_ctx[c], m_base, 0, n_ctx=1, v4=False)))
-                counts_by_ctx.append(mask.sum(dim=1).cpu().numpy())
-                del mask
+                if compact:  # each sub-stream order-0: no context carry
+                    packed, counts = _pack_compact(cells, mask, entries_by_ctx[c], m_base, 0, 1)
+                else:
+                    packed = ops.pack_cells(cells, mask, entries_by_ctx[c], m_base, 0, n_ctx=1,
+                                            v4=False)
+                    counts = mask.sum(dim=1).cpu().numpy()
+                parts_by_ctx.append(_payloads(packed, stage))
+                counts_by_ctx.append(counts)
+                del mask, packed
             del ctxp
             for k in range(take):
                 parts = [parts_by_ctx[c][k] for c in range(N_CTX)]
@@ -213,9 +266,13 @@ def vcfz_from_vcfc_device(
                     np.array([int(counts_by_ctx[c][k]) for c in range(N_CTX)], np.uint32).tobytes()
                     + np.array([len(p) for p in parts], np.uint32).tobytes()
                 )
+        elif compact:
+            packed, _counts = _pack_compact(cells, present, entries, m_base, CTX_INIT, n_ctx)
+            payloads.extend(_payloads(packed, stage))
         else:
             payloads.extend(_payloads(
-                ops.pack_cells(cells, present, entries, m_base, CTX_INIT, n_ctx=n_ctx, v4=False)))
+                ops.pack_cells(cells, present, entries, m_base, CTX_INIT, n_ctx=n_ctx, v4=False),
+                stage))
         del cells, present
 
     # ---- required-columns payloads (v3+): order-0 device pack
@@ -244,7 +301,7 @@ def vcfz_from_vcfc_device(
                 v[k - r0, :n] = True
             req_payloads.extend(_payloads(ops.pack_cells(
                 torch.from_numpy(g).to(device), torch.from_numpy(v).to(device), req_entries,
-                0, 0, n_ctx=1, v4=False)))
+                0, 0, n_ctx=1, v4=False), stage))
 
     out = _assemble_container(
         version, block_lines, geo, esc_list, books, req_book, nsym,

@@ -28,10 +28,16 @@ Torch's ``>>`` on int32 is arithmetic, where the JAX package shifts right
 logically: the windows are built in int64 from the words' unsigned values,
 and every state the passes shift is below 2^15, where the two agree.
 
-``device_unpack_symbols`` ports the JAX package's dense path: the plane
-comes back to the host, which cuts each row to its stream's bits and
-compacts it.  The on-device compaction branch (``device_compaction()``,
-``sort_compact``) is not ported yet (ROADMAP A.2.4).
+``device_unpack_symbols`` ports both of the JAX package's branches, which
+``VCFZ_COMPACT`` selects (``ops.vcfz_device.device_compaction``).  The dense
+branch brings the plane back to the host, which cuts each row to its
+stream's bits and compacts it.  The compaction branch masks each row to its
+stream's bits, compacts the plane on the device (``sort_compact``, the
+Hopper kernel S1 on the card), brings the counts back (one small
+synchronising copy a dispatch), and then only a leading slice of each row,
+its width bucketed from the largest count.  It stages the words (H2D) and
+the slice (D2H) through pinned host buffers that the dispatches of a call
+reuse.
 """
 
 from __future__ import annotations
@@ -187,46 +193,126 @@ def _split_grid(nbits_max: int) -> tuple[int, int]:
 _MAX_DISPATCH_BITS = 64 * 1024 * 1024
 
 
-def stream_words(payloads: list[bytes], s1: int, s2: int) -> np.ndarray:
+def stream_words(payloads: list[bytes], s1: int, s2: int, out: np.ndarray | None = None
+                 ) -> np.ndarray:
     """(B, s1*s2/32) int32: each payload's big-endian 32-bit words,
-    zero-padded to the grid."""
-    words = np.zeros((len(payloads), s1 * s2 // 8), np.uint8)
+    zero-padded to the grid; written into ``out`` (a C-contiguous int32
+    array of that shape) when it is given."""
+    shape = (len(payloads), s1 * s2 // 32)
+    if out is None:
+        out = np.empty(shape, np.int32)
+    if out.shape != shape or out.dtype != np.int32 or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous int32 array of shape {shape}")
+    raw = out.view(np.uint8)
+    raw[:] = 0
     for i, p in enumerate(payloads):
-        words[i, : len(p)] = np.frombuffer(p, np.uint8)
-    return words.view(">u4").astype(np.uint32).view(np.int32)
+        raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+    if np.little_endian:  # the bytes are big-endian words
+        out.byteswap(inplace=True)
+    return out
 
 
 def device_unpack_symbols(
     payloads: list[bytes], n_syms: list[int], book: Codebook, device=None
 ) -> list[np.ndarray]:
     """Decode order-0 payloads block-parallel on ``device`` (None: the CUDA
-    device); returns the symbol array per payload (host compaction + one
-    O(symbols) table map).  Raises ValueError on streams whose chained
-    decode does not yield at least n_syms symbols, or yields an ordinal
-    outside the book (the host decoders' 'invalid Huffman stream')."""
+    device); returns the symbol array per payload.  Raises ValueError on
+    streams whose chained decode does not yield at least n_syms symbols, or
+    yields an ordinal outside the book (the host decoders' 'invalid Huffman
+    stream').
+
+    Each dispatch of at most ``_MAX_DISPATCH_BITS`` bits goes through the
+    same steps: the words built on the host (``stream_words``), sent to
+    the device (``_upload``), decoded (``decode_bits``); then, under
+    compaction (``device_compaction``), compacted on the device with the
+    counts brought back (``_compact_rows``); brought back (``_download``:
+    the dense plane, or the compacted slice through a pinned buffer); and
+    cut, gated and mapped to symbols on the host (``_rows_to_symbols``)."""
     if not payloads:
         return []
     from .. import engine
+    from .vcfz_device import HostStage, _bucket, device_compaction
 
     device = engine._device(device)
     limits, idx_adjust, sorted_syms = device_decode_tables(book)
     max_bytes = max(len(p) for p in payloads)
     s1, s2 = _split_grid(max_bytes * 8)
     group = max(_MAX_DISPATCH_BITS // (s1 * s2), 1)
+    compact = device_compaction(device)
+    # under compaction the words and the slices pass through pinned buffers
+    # that every dispatch reuses; the dense branch copies from and to
+    # pageable memory
+    words_in, slice_out = (HostStage(device), HostStage(device)) if compact else (None, None)
     out: list[np.ndarray] = []
     for g0 in range(0, len(payloads), group):
         chunk = payloads[g0 : g0 + group]
-        words = torch.from_numpy(stream_words(chunk, s1, s2)).to(device)
-        plane = decode_bits(words, limits, idx_adjust, s1=s1, s2=s2).cpu().numpy()
+        nbits = [len(p) * 8 for p in chunk]
+        if compact:  # the last dispatch's copies are done: its counts came back
+            host_words = words_in.take((len(chunk), s1 * s2 // 32), torch.int32)
+            stream_words(chunk, s1, s2, out=host_words.numpy())
+        else:
+            host_words = torch.from_numpy(stream_words(chunk, s1, s2))
+        words = _upload(host_words, device)
+        plane = decode_bits(words, limits, idx_adjust, s1=s1, s2=s2)
         del words
-        for i, p in enumerate(chunk):
-            row = plane[i, : len(p) * 8]
+        counts = None
+        if compact:
+            plane, counts = _compact_rows(plane, nbits)
+            plane = plane[:, : _bucket(int(counts.max(initial=0)), plane.shape[1])]
+        host = _download(plane, slice_out)
+        del plane
+        out += _rows_to_symbols(host, nbits, n_syms[g0 : g0 + len(chunk)], sorted_syms, counts)
+    return out
+
+
+def _upload(words: torch.Tensor, device) -> torch.Tensor:
+    """The words to the device, without blocking from a pinned buffer."""
+    return words.to(device, non_blocking=words.is_pinned())
+
+
+def _compact_rows(plane: torch.Tensor, nbits: list[int]):
+    """Compact each row's start bits within its stream's true bit length
+    to its front on the plane's device (``sort_compact``); returns (the
+    compacted plane on the device, the counts on the host).  Masking to
+    the bit length keeps the truncated-stream gate: spurious starts in the
+    zero padding past a stream's end must not count."""
+    from .vcfz_device import sort_compact
+
+    cells = torch.arange(plane.shape[1], device=plane.device)[None, :]
+    valid = cells < torch.tensor(nbits, dtype=torch.int64).to(plane.device)[:, None]
+    compacted, counts = sort_compact(plane, (plane != 0) & valid)
+    return compacted, counts.cpu().numpy()
+
+
+def _download(plane: torch.Tensor, stage) -> np.ndarray:
+    """The plane (or its compacted slice) to the host: through the pinned
+    ``stage`` after a device copy that makes the slice contiguous; else
+    (``stage`` None) a pageable ``.cpu()``."""
+    if stage is None:
+        return plane.cpu().numpy()
+    return stage.fetch(plane.contiguous())
+
+
+def _rows_to_symbols(host: np.ndarray, nbits: list[int], n_syms, sorted_syms, counts
+                     ) -> list[np.ndarray]:
+    """Each row's first n_syms ordinals mapped to symbols, behind both
+    'invalid Huffman stream' gates.  A dense row (``counts`` None) is cut to
+    its stream's bits and compacted here (starts in the final byte's padding
+    are spurious, so only the first n count); a compacted row starts with
+    its ``counts[i]`` ordinals."""
+    out = []
+    for i, n in enumerate(n_syms):
+        if counts is None:
+            row = host[i, : nbits[i]]
             vals = row[np.flatnonzero(row)] - 1
-            n = n_syms[g0 + i]
             if len(vals) < n:
                 raise ValueError("invalid Huffman stream")
-            vals = vals[:n]  # starts in the final byte's padding are spurious
-            if len(vals) and (vals >= len(sorted_syms)).any():
+            vals = vals[:n]
+        else:
+            if counts[i] < n:
                 raise ValueError("invalid Huffman stream")
-            out.append(sorted_syms[vals])
+            vals = host[i, :n] - 1
+        if len(vals) and (vals >= len(sorted_syms)).any():
+            raise ValueError("invalid Huffman stream")
+        out.append(sorted_syms[vals])
     return out

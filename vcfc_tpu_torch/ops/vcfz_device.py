@@ -2,8 +2,8 @@
 ``vcfc_tpu/ops/vcfz_device.py`` that the versions without the vertical
 transform (v1, v2, v3, v5, v8) run.
 
-Three ops, on whatever device their tensors lie on (XLA ops in the JAX
-package, PyTorch ops here, the same code on the CPU and the card):
+Ops on whatever device their tensors lie on (XLA ops in the JAX package,
+PyTorch ops here, the same code on the CPU and the card):
 
   ``sympos_v3``   the positional flag bytes ARE the v1-v3 symbols; escape
                   flags swap to their dictionary symbol 256 + id
@@ -15,18 +15,36 @@ package, PyTorch ops here, the same code on the CPU and the card):
                   into its word's bits and the spill into the next word, and
                   the per-word OR as a segmented sum (the bits of a word are
                   disjoint)
+  ``pack_cells_compact``  ``pack_cells`` on front-compacted symbol rows,
+                  the context of a symbol the class of the lane before it
+  ``esc_plane_device``  a batch's escape-id plane scattered on the device
+                  from its sparse (line, sample, id) triples
 
-The host compacts the positional words into payload bytes
-(``compact_payloads``, numpy), as it compacts positional flags.  The bit
-arithmetic runs in int64 and comes back as int32 with the JAX package's
-values (a word whose bit 31 is set is negative, as there); ``total_bits``
-is int32.  The JAX package's vertical transform (``symbol_grid``,
-``sympos_v4``), its on-device compaction (``pack_cells_compact``,
-``sort_compact``, ``esc_plane_device``) and its decode (``resolve_match_grid``)
-are not ported yet (ROADMAP A.2).
+and the on-device compaction, which ``VCFZ_COMPACT`` selects
+(``device_compaction``): ``sort_compact`` moves each row's masked values to
+its front, in order, and counts them.  It dispatches on the tensor's
+device: ``sort_compact_plain`` (a cumsum and one scatter, the spec and the
+CPU path) for a CPU tensor; for a CUDA tensor the hand-written Hopper
+kernel S1 (``cuda_compact.cuda_sort_compact``, from
+``csrc/compact_kernels.cu``), or an exception.  The JAX package sorts
+instead (a stable ``lax.sort_key_val``); the result is the same, the whole
+row included.  The host then brings back only a leading slice of each
+row, its width bucketed (``_bucket``), through a pinned buffer
+(``HostStage``): ``compact_payloads_device`` does so for the packed words.
+Without compaction the host compacts the positional words itself
+(``compact_payloads``, numpy), as it compacts positional flags.
+
+The bit arithmetic runs in int64 and comes back as int32 with the JAX
+package's values (a word whose bit 31 is set is negative, as there);
+``total_bits`` is int32.  The JAX package's vertical transform
+(``symbol_grid``, ``sympos_v4``), ``compact_symbols_device`` and its decode
+(``resolve_match_grid``) are not ported yet (ROADMAP A.2.1, A.2.3).
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 import torch
@@ -190,3 +208,155 @@ def compact_payloads(word_val, emit, total_bits) -> list[bytes]:
         words = word_val[b, emit[b]].astype(">u4")
         out.append(words.tobytes()[: (bits + 7) >> 3])
     return out
+
+
+def _check_pair(values: torch.Tensor, mask: torch.Tensor) -> None:
+    if values.dim() != 2 or mask.shape != values.shape:
+        raise ValueError(f"sort_compact takes 2-D values and a mask of their shape, got "
+                         f"{tuple(values.shape)} and {tuple(mask.shape)}")
+
+
+def sort_compact_plain(values: torch.Tensor, mask: torch.Tensor):
+    """``sort_compact`` as PyTorch ops, on the values' device: with c the
+    inclusive cumsum of the mask along the row, a masked cell goes to
+    c - 1 and an unmasked one to count + i - c, by one scatter.  The spec
+    of the kernel S1, and the CPU path."""
+    _check_pair(values, mask)
+    m = mask.to(torch.bool)
+    c = torch.cumsum(m, dim=1, dtype=torch.int64)
+    count = c[:, -1:] if values.shape[1] else c.new_zeros((c.shape[0], 1))
+    i = torch.arange(values.shape[1], dtype=torch.int64, device=values.device)[None, :]
+    dst = torch.where(m, c - 1, count + i - c)
+    return torch.empty_like(values).scatter_(1, dst, values), count[:, 0].to(torch.int32)
+
+
+def sort_compact(values: torch.Tensor, mask: torch.Tensor):
+    """Order-preserving compaction of each row of a (B, n) tensor: its
+    masked values first, in order, then its unmasked values, in order (the
+    JAX package's stable sort keyed by the cell index where the mask is
+    set).  Returns (the compacted (B, n) values, (B,) int32 masked counts).
+
+    A CPU tensor takes ``sort_compact_plain``; a CUDA tensor the Hopper
+    kernel S1 (int32 values, a bool or uint8 mask, both contiguous), which
+    raises if it cannot build or launch."""
+    _check_pair(values, mask)
+    if values.device.type == "cpu":
+        return sort_compact_plain(values, mask)
+    from .cuda_compact import cuda_sort_compact
+
+    return cuda_sort_compact(values, mask)
+
+
+def device_compaction(device) -> bool:
+    """Whether the `.vcfz` device routes compact on ``device`` (sort_compact,
+    a bucketed slice of O(outputs) brought back) instead of bringing the
+    dense planes to the host.
+
+    ``VCFZ_COMPACT=device|host`` forces it either way, as in the JAX
+    package.  Unset, a CPU device takes ``host``, as the JAX package's CPU
+    backend does (the two branches were not timed against each other on
+    the CPU), and a CUDA device takes ``device``: on the cohort of
+    ``chip_smoke.py`` (2,504 samples x 65,536 lines) the A/B of its phase
+    3c (``python3 chip_smoke.py --compact-ab``) found compaction on the
+    card faster end to end for every version it runs (PERF.md section 5)."""
+    mode = os.environ.get("VCFZ_COMPACT")
+    if mode == "device":
+        return True
+    if mode == "host":
+        return False
+    return torch.device(device).type == "cuda"
+
+
+# D2H slice widths are bucketed to multiples of this (the JAX package's
+# width, so the slices and the payloads agree with it cell for cell)
+_SLICE_BUCKET = 4096
+
+
+def _bucket(k: int, n: int) -> int:
+    return min(n, -(-max(k, 1) // _SLICE_BUCKET) * _SLICE_BUCKET)
+
+
+class HostStage:
+    """A host buffer that one call reuses across its dispatches: pinned
+    when the device is a CUDA device (copies run at the pinned rate, and a
+    non-blocking H2D from it is asynchronous), plain memory on the CPU.
+    The caller rewrites it only once the copies that read it are done."""
+
+    def __init__(self, device):
+        self.pinned = torch.device(device).type == "cuda"
+        self.buf = torch.empty(0, dtype=torch.uint8)
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        """A (shape) tensor of dtype over the buffer's first bytes, the
+        buffer grown if it is too small."""
+        nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        if self.buf.numel() < nbytes:
+            self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pinned)
+        return self.buf[:nbytes].view(dtype).view(shape)
+
+    def fetch(self, t: torch.Tensor) -> np.ndarray:
+        """The host copy of t, which must be contiguous, in the buffer (the
+        copy is synchronous), as a numpy view."""
+        host = self.take(t.shape, t.dtype)
+        host.copy_(t)
+        return host.numpy()
+
+
+def pack_cells_compact(sym_c: torch.Tensor, counts: torch.Tensor, entries: torch.Tensor,
+                       m_base: int, ctx_init: int, *, n_ctx: int, v4: bool):
+    """``pack_cells`` on FRONT-COMPACTED symbol rows: row b holds its
+    block's counts[b] symbols in its first lanes (``sort_compact``'s output
+    sliced to a bucketed width), so the codeword lookup runs over O(symbols)
+    lanes.  A symbol's context is the class of the lane before it
+    (``ctx_init`` at lane 0), and the words are bit for bit the dense
+    packer's (the same offsets and spill injection: a straddler's next
+    cell IS the next symbol).
+
+    Args:
+      sym_c:  (n_blocks, k) int32, symbols front-compacted per row
+      counts: (n_blocks,) int32, the symbols of each row
+      rest as ``pack_cells``.
+
+    Returns ``pack_cells``' (word_val, emit, total_bits, bad) in compact
+    cell space, (n_blocks, k + 1).  ``bad`` also marks a row whose count
+    exceeds k, which the JAX package would cut short without a word."""
+    sym_c = torch.nn.functional.pad(sym_c.to(torch.int32), (0, 1))
+    counts = counts.to(device=sym_c.device, dtype=torch.int32)
+    A = entries.shape[0] // n_ctx
+    valid = _cells(sym_c) < counts[:, None]
+    if n_ctx == 1:
+        ctx = torch.zeros_like(sym_c)
+    else:
+        ctx = _pad_left(_cell_class(sym_c, m_base, v4=v4), ctx_init).to(torch.int32)
+    word_val, emit, total_bits, bad = _pack_from_ctx(sym_c, valid, ctx, entries, A)
+    return word_val, emit, total_bits, bad | (counts > sym_c.shape[1] - 1)
+
+
+def compact_payloads_device(word_val, emit, total_bits, stage: HostStage | None = None
+                            ) -> list[bytes]:
+    """``compact_payloads`` with the compaction on the words' device:
+    ``sort_compact`` brings each row's emitted words to its front, and only
+    a leading slice of ceil(max bits / 32) words (bucketed) comes back to
+    the host, through ``stage`` (a new one if None), instead of the dense
+    word plane and emit mask.  The same bytes."""
+    stage = HostStage(word_val.device) if stage is None else stage
+    wsorted, _ = sort_compact(word_val, emit)
+    bits = total_bits.cpu().numpy()
+    nwords = (bits.astype(np.int64) + 31) >> 5
+    kb = _bucket(int(nwords.max(initial=0)), word_val.shape[1])
+    host = stage.fetch(wsorted[:, :kb].contiguous())
+    return [host[b, : nwords[b]].astype(">u4").tobytes()[: (int(bits[b]) + 7) >> 3]
+            for b in range(host.shape[0])]
+
+
+def esc_plane_device(lines, samples, ids, lpb: int, s_pad: int, device) -> torch.Tensor:
+    """One batch's (lpb, s_pad) int32 escape-id plane built on ``device``
+    from its sparse (line, sample, id) triples (numpy arrays; lines within
+    the batch): O(escapes) H2D instead of a dense 4-byte-a-cell plane.
+    Only the real triples are scattered (the JAX package pads them to a
+    bucketed count for its jit cache and drops the pads)."""
+    plane = torch.zeros((lpb, s_pad), dtype=torch.int32, device=device)
+    if len(lines):
+        trip = torch.from_numpy(np.stack([lines, samples, ids]).astype(np.int64)).to(device)
+        plane[trip[0], trip[1]] = trip[2].to(torch.int32)
+    return plane
